@@ -1,16 +1,18 @@
-"""On-chip orbit-determination benchmark (TPU, float64).
+"""Orbit-determination benchmark on the GPU (float64 and float32 rows).
 
 The reference's flagship nonlinear workloads are the SRIF / hybrid-CKF
 OD arcs (srif_test.go:61-64, hybrid_test.go:56-66); the MC kernel bench
 (bench.py) covers the linear throughput tier, this covers the second
-workload class ON the TPU chip: truth propagation (two-body + J2, RK4
+workload class on the device: truth propagation (two-body + J2, RK4
 with STM) and the full SRIF and hybrid-CKF filter scans run in x64 on
 device, and the estimates are checked against the reference's accuracy
 gates (pos RMS < 1e-3 km, vel RMS < 1e-6 km/s, srif_test.go:169).
 
-Prints one JSON line per filter:
+Runs in one process and refuses to run without a GPU.  Prints one JSON
+line per filter, each carrying the device it ran on:
   {"metric": "srif_od_steps_per_sec", "value": ..., "pos_rms_km": ...,
-   "vel_rms_kms": ..., "gates_pass": true, "steps": N, "dtype": "float64"}
+   "vel_rms_kms": ..., "gates_pass": true, "steps": N, "dtype": "float64",
+   "device": {...}}
 
 Run:  python bench_od.py [steps]   (default 8640 = the full reference
 24h arc; the filter arc starts at the first station pass, 5120 steps /
@@ -31,9 +33,12 @@ import numpy as np
 sys.path.insert(0, ".")
 
 from gokalman_tpu import noise as gn
-from gokalman_tpu import od
+from gokalman_tpu import od, profiling
 from gokalman_tpu.dynamics import elements, propagate, stations
 from gokalman_tpu.dynamics.propagate import MeasurementSet
+
+
+DEVICE = {}  # filled by main(): platform, device_kind, count, card
 
 
 def scenario(steps):
@@ -114,19 +119,15 @@ def run_one(name, fn, s, tail=False, pos_gate=1e-3, vel_gate=1e-6,
         "gates_pass": bool(pos < pos_gate and vel < vel_gate),
         "steps": n_steps,
         "dtype": dtype,
-        "backend": jax.default_backend(),
+        "device": DEVICE,
     }
     print(json.dumps(out))
     return out
 
 
 def main(steps=8640):
-    import os
-
-    from gokalman_tpu.profiling import backend_watchdog
-
-    backend_watchdog(float(os.environ.get("BENCH_BACKEND_TIMEOUT",
-                                          "600")), "bench_od")
+    DEVICE.update(profiling.require_gpu())
+    profiling.setup_compile_cache()
     s = scenario(steps)
     noise = gn.noiseless(jnp.zeros((3, 3)), s["r"])
     ekf_mask = jnp.cumsum(s["ms"].has_meas) > 30
@@ -134,11 +135,9 @@ def main(steps=8640):
     # Reference-strict rows run SELF-CONSISTENTLY (truth0=): the truth
     # is co-propagated inside the filter scan and observations are
     # generated in-scan — the one-propagator structure of the
-    # reference's own tests (srif_test.go:89-125).  Required on this
-    # backend: emulated-x64 f64 reproduces across separately compiled
-    # programs only to ~1e-7 relative (measured: 2e-4 km of range
-    # against a regenerated truth), which a Q=0 filter reads as a
-    # phantom measurement bias worth ~31 m of estimate RMS.  A small
+    # reference's own tests (srif_test.go:89-125).  A Q=0 filter reads
+    # any truth/filter propagator mismatch (e.g. two separately compiled
+    # programs rounding differently) as a phantom measurement bias.  A small
     # (1.7 m / 1.7 mm/s) initial perturbation keeps the rows genuine
     # estimation tasks rather than zero-innovation tautologies.
     x0_small = s["x0_ref"] + jnp.array([1e-3, -1e-3, 1e-3,
@@ -185,8 +184,7 @@ def main(steps=8640):
     # truth and reference genuinely drift apart between passes (per-op
     # rounding on now-different states), and a Q=0 filter is too
     # overconfident to re-acquire (measured 0.176 km tail without the
-    # floor).  sigma=1e-7 km/s^2 absorbs the f32 arithmetic noise:
-    # 6.2 m / 1.9e-5 km/s measured on chip.
+    # floor).  sigma=1e-7 km/s^2 absorbs the f32 arithmetic noise.
     srif32_fn = jax.jit(lambda: od.run_srif_od(
         to32(x0_small), to32(s["p0"]), noise32, ms32, s["dt"],
         stations_list=sts32, degree=2, t0=s["t0"],
@@ -228,11 +226,11 @@ def main(steps=8640):
         "finite": finite,
         "gates_pass": finite,
         "dtype": "float32",
-        "backend": jax.default_backend(),
+        "device": DEVICE,
     }
     print(json.dumps(r5))
 
-    # Dynamic model compensation on chip (x64): truth propagated WITH
+    # Dynamic model compensation on the device (x64): truth propagated WITH
     # J3, the filter models J2 only — the Gauss-Markov w state absorbs
     # the unmodeled acceleration (CPU-measured 10x RMS win vs the
     # uncompensated filter; see tests/test_dmc.py).
@@ -299,7 +297,8 @@ def main(steps=8640):
     r9["final_nees"] = nees9
     r9["gates_pass"] = bool(r9["gates_pass"] and nees9 < 30.0)
     print(json.dumps({"metric": "consider_od_final_nees", "value": nees9,
-                      "unit": "nees_n6", "gates_pass": nees9 < 30.0}))
+                      "unit": "nees_n6", "gates_pass": nees9 < 30.0,
+                      "device": DEVICE}))
 
     # Derivative-free tier at native f32: ensemble OD (96 members, no
     # STM/Jacobians) from the perturbed start.

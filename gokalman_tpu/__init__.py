@@ -1,4 +1,4 @@
-"""gokalman_tpu — a TPU-native state-estimation (Kalman filtering) framework.
+"""gokalman_tpu — a state-estimation (Kalman filtering) framework for JAX.
 
 A ground-up JAX/XLA/Pallas rebuild with the capabilities of
 ChristopherRabotin/gokalman: vanilla/information/square-root linear

@@ -1,6 +1,6 @@
 """Continuous-to-discrete conversion (Van Loan method).
 
-TPU rebuild of the reference's c2d tier (reference: c2d.go:13-75).
+JAX rebuild of the reference's c2d tier (reference: c2d.go:13-75).
 The matrix exponential runs as jittable XLA (expm is a fixed Pade
 series — compiler-friendly); the Nyquist aliasing check needs a
 general (non-symmetric) eigendecomposition, which is host-only, so it
@@ -14,19 +14,22 @@ import jax.numpy as jnp
 import numpy as np
 from jax.scipy.linalg import expm
 
+from . import linalg
+
 
 def nyquist_ok(a, dt: float) -> bool:
     """Nyquist criterion 2*|lambda_max|*dt < pi (reference: c2d.go:16-28).
 
     Mirrors the reference's selection rule: among the eigenvalues of A,
     take the one with the largest imaginary part, then test its
-    magnitude.  Host-side numpy (general eig is not a TPU primitive).
+    magnitude.  Host-side numpy (a general eig on the host, once).
     """
     lams = np.linalg.eigvals(np.asarray(a, dtype=np.float64))
     lam_max = lams[int(np.argmax(lams.imag))]
     return bool(2.0 * np.abs(lam_max) * dt < np.pi)
 
 
+@linalg.highp
 def van_loan(a, gamma, w, dt: float, check_nyquist: bool = True):
     """Discretize a CT LTI system: returns (F, Q, ok).
 
@@ -59,10 +62,10 @@ def van_loan_host(a, gamma, w, dt: float):
     `van_loan`, returning plain numpy (F, Q).
 
     For trace-time/static-config discretization (e.g. the OD harness's
-    DMC process noise): inside a jitted program the f64 expm lowers to
-    an LuDecomposition the TPU x64 path does not implement, so when all
-    inputs are static Python/numpy config, discretize on the host and
-    embed the result as a constant instead.
+    DMC process noise): when all inputs are static Python/numpy config
+    there is nothing to trace, so discretize once on the host and embed
+    the result as a constant instead of compiling an expm into the
+    program.
     """
     import scipy.linalg as sla
 

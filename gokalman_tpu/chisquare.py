@@ -1,6 +1,6 @@
 """Chi-square filter-consistency tests (NEES / NIS).
 
-TPU rebuild of the reference's replay loop (reference:
+JAX rebuild of the reference's replay loop (reference:
 chisquare.go:16-95): instead of resetting one mutable filter per run
 and accumulating Go maps, every Monte-Carlo run is replayed through a
 fresh functional filter under `vmap`, and NEES/NIS are batched

@@ -217,7 +217,7 @@ def pcrb(phis, hs, q, r, j0):
     def body(j, xs):
         dd11_k, ef_k, hrh_k = xs
         inner = j + dd11_k
-        # PSD (Cholesky) solves throughout — TPU x64 has no LU.
+        # PSD (Cholesky) solves throughout: the matrices are SPD.
         chol = jnp.linalg.cholesky(_sym(inner))
         p_pred = q + ef_k @ jax.scipy.linalg.cho_solve((chol, True), ef_k.T)
         j_new = _sym(_psd_inv(p_pred) + hrh_k)
@@ -307,7 +307,7 @@ def _sym(m):
 
 
 def _psd_inv(m):
-    """Cholesky-based symmetric inverse (TPU x64 has no LU)."""
+    """Cholesky-based symmetric inverse (the input is SPD)."""
     chol = jnp.linalg.cholesky(_sym(m))
     eye = jnp.eye(m.shape[-1], dtype=m.dtype)
     return jax.scipy.linalg.cho_solve((chol, True), eye)

@@ -162,7 +162,7 @@ def euler_rates(inertia, omega, torque=None):
     """Euler's rigid-body equations: ω̇ = I⁻¹(τ − ω × I ω) in the body
     frame (Markley & Crassidis eq. 3.81).  `inertia` [3,3] SPD body
     inertia matrix; `torque` [3] body torque (None = torque-free).
-    Cholesky solve (TPU x64 has no LU — the repo-wide convention)."""
+    Cholesky solve (the inertia matrix is SPD)."""
     h = inertia @ omega
     rhs = -jnp.cross(omega, h)
     if torque is not None:
@@ -177,8 +177,9 @@ def propagate_rigid_body(q, omega, inertia, dt, torque=None, n_sub: int = 1):
     exponential at the RK4-averaged rate.  `n_sub` substeps refine the
     rate coupling for large dt·ω.  Torque-free motion conserves the
     INERTIAL angular momentum A(q)ᵀ I ω and the rotational kinetic
-    energy ½ωᵀIω (pinned in tests) — under linalg.highp, since at the
-    TPU's default bf16 matmul pass those invariants cannot hold."""
+    energy ½ωᵀIω (pinned in tests) — under linalg.highp, since at a
+    reduced-precision matmul default (TF32 on the GPU) those invariants
+    cannot hold."""
     h = dt / n_sub
 
     def substep(carry, _):

@@ -1,6 +1,6 @@
 """Streaming CSV export of estimates with ±Nσ bounds.
 
-TPU rebuild of the reference exporter (reference: exporter.go:12-96).
+JAX rebuild of the reference exporter (reference: exporter.go:12-96).
 The device side stays pure: filters return stacked estimate pytrees;
 this module is the host boundary that drains them to CSV.  Headers
 prefixed with `_` are written without covariance-bound columns

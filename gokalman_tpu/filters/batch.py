@@ -1,4 +1,4 @@
-"""Batch least-squares estimator (normal equations), TPU-first.
+"""Batch least-squares estimator (normal equations).
 
 Rebuild of the reference batch filter (reference: batch.go:34-79).
 The reference's stateful accumulate-then-solve protocol

@@ -1,4 +1,4 @@
-"""Equality-constrained Kalman filtering (projection method), TPU-first.
+"""Equality-constrained Kalman filtering (projection method).
 
 State constraints the reference cannot express (gokalman estimates
 unconstrained states only; the closest idiom is the statOD closed-loop

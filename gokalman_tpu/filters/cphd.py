@@ -33,7 +33,7 @@ against EXACT brute-force multi-target Bayes in tests.)  eⱼ = elementary symme
 functions, computed by the masked polynomial-product recursion, with
 the leave-one-out values recomputed per measurement (m_max is small).
 
-TPU-first shape: everything the PHD does (fixed mixture slots, padded
+Static-shape design: everything the PHD does (fixed mixture slots, padded
 [m_max, p] frames + where-masks, Runnalls merging) plus a static
 [n_max+1] cardinality vector; Υ is one [n, j] logsumexp grid.  Model
 carries static config — close over it when jitting (the phd/tracker

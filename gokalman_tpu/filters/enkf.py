@@ -1,11 +1,11 @@
-"""Ensemble Kalman filter (EnKF) family, TPU-first.
+"""Ensemble Kalman filter (EnKF) family.
 
 Beyond the reference: gokalman's filters all carry an explicit [n, n]
 covariance (vanilla.go:149-152), which caps them at small state
 dimensions.  The EnKF replaces the covariance with an ensemble of N
 state samples whose anomalies *are* the square-root factor — the
 analysis becomes a handful of [N, n] x [n, p] matmuls, which is exactly
-the shape the TPU MXU wants: large, batched, static.  No n x n matrix
+the shape matrix units want: large, batched, static.  No n x n matrix
 is ever formed on the critical path (the Estimate's covariance field is
 derived output), so the same code scales from the reference's 6-state
 trackers to 1e5-state geophysical systems.

@@ -23,10 +23,10 @@ pinned here over random joint covariances.  The price is conservatism:
 with Pa == Pb, CI returns P (no claimed information gain — it cannot
 rule out that both tracks carry exactly the same information).
 
-TPU-first shape: the det-minimizing weight is found by fixed-iteration
+Static-shape design: the det-minimizing weight is found by fixed-iteration
 golden-section search on the convex -logdet (one slogdet per
 iteration) — branch-free, jit-safe, vmappable over track pairs; all
-solves are Cholesky-based via linalg.solve_psd (no LU on TPU x64).
+solves are Cholesky-based via linalg.solve_psd (the covariances are SPD).
 
 No reference counterpart (the reference is single-sensor); the
 association gate mirrors the chi-square machinery of chisquare.go.
@@ -251,7 +251,7 @@ def associate_and_fuse(xa, pa, mask_a, xb, pb, mask_b, gate: float,
 @linalg.highp
 def inverse_covariance_intersection(xa, pa, xb, pb, omega=None,
                                     iters: int = 60) -> FusedEstimate:
-    """ICI fusion (Noack, Sijs & Hanebeck 2017): tighter than CI while
+    """Inverse covariance intersection (Noack, Sijs & Hanebeck 2017): tighter than CI while
     still consistent when the dependence between the two estimates
     comes from COMMON INFORMATION (shared prior, shared process noise
     — exactly how two trackers of one target correlate):
@@ -266,7 +266,7 @@ def inverse_covariance_intersection(xa, pa, xb, pb, omega=None,
     that plain `fuse_independent` double-counts and CI bounds away;
     det(P_ICI) <= det(P_CI) always (pinned).  Use CI when the
     dependence may be ADVERSARIAL rather than common-information-
-    shaped — ICI's consistency guarantee is the weaker (but usually
+    shaped — inverse CI's consistency guarantee is the weaker (but usually
     realistic) one.  `omega` fixes the weight; None minimizes the
     fused logdet by the same golden-section scheme as CI."""
     xa, pa = jnp.asarray(xa), jnp.asarray(pa)

@@ -1,4 +1,4 @@
-"""Discrete-time H-infinity (minimax) filter, TPU-first.
+"""Discrete-time H-infinity (minimax) filter.
 
 The robust counterpart to the CKF tier (vanilla.go:128-220): instead of
 minimizing expected squared error under known Gaussian Q/R, the H∞
@@ -23,8 +23,9 @@ eigenvalue > 0) rather than raising — under jit the caller gates on it
 (θ chosen too large simply reports infeasibility, the reference-style
 panic is not jittable).
 
-TPU notes: pure NamedTuple pytrees, lax.scan driver, all algebra under
-linalg.highp; the n×n solve uses linalg.solve_qr (no f64 LU on TPU).
+Design notes: pure NamedTuple pytrees, lax.scan driver, all algebra
+under linalg.highp; the n×n solve uses linalg.solve_qr (M is
+nonsymmetric and can approach singularity near the γ bound).
 """
 
 from __future__ import annotations
@@ -109,7 +110,7 @@ def step(model: Model, state: State, measurement, control=None):
     a = hrh - model.theta * model.s_bar
     m = eye + a @ state.p  # M = I − θS̄P + HᵀR⁻¹HP
     # P M⁻¹ = (I + P A)⁻¹ P = (Mᵀ)⁻¹ P for symmetric P, A — one QR
-    # solve instead of forming M⁻¹ (no f64 LU on the TPU x64 path).
+    # solve instead of forming M⁻¹.
     pm = linalg.solve_qr(m.T, state.p)
     k_gain = pm @ model.h.T @ linalg.inv_qr(model.noise.r)
     innovation = measurement - model.h @ state.x

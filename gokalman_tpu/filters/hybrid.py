@@ -1,4 +1,4 @@
-"""Hybrid CKF/EKF for linearized nonlinear systems, TPU-first.
+"""Hybrid CKF/EKF for linearized nonlinear systems.
 
 Rebuild of the reference hybrid filter (reference: hybrid.go:23-308),
 the statOD workhorse: a KF linearized about a reference trajectory,

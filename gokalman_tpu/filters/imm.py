@@ -1,4 +1,4 @@
-"""Interacting multiple model (IMM) estimator, TPU-first.
+"""Interacting multiple model (IMM) estimator.
 
 Beyond the reference: the standard maneuvering-target architecture
 (Blom & Bar-Shalom 1988) — a bank of M mode-matched Kalman filters
@@ -6,7 +6,7 @@ whose priors are remixed each step through a Markov mode-transition
 matrix, with mode probabilities updated by each filter's innovation
 likelihood.
 
-TPU-native shape: the mode bank is a *stacked* `vanilla.Model` pytree
+Static-shape design: the mode bank is a *stacked* `vanilla.Model` pytree
 (leaves carry a leading [M] axis) and the whole per-mode tier — mixing,
 M Joseph-form CKF updates, likelihood evaluation — is one `vmap` over
 that axis, so the step compiles to a single fused batched-linalg

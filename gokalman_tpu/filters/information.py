@@ -1,4 +1,4 @@
-"""Information filter (KF in information space), TPU-first.
+"""Information filter (KF in information space).
 
 Rebuild of the reference information filter (reference:
 information.go:20-330): state carried as (i = I·x, I = P^{-1}); F, Q, R

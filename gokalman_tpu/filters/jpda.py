@@ -11,7 +11,7 @@ from at most one target, a target produces at most one measurement);
 each track then does its own PDAF-style combined update with the
 MARGINAL β's of the joint posterior.
 
-TPU-first shape: the joint-event table is finite and static — every
+Static-shape design: the joint-event table is finite and static — every
 feasible assignment a ∈ {0..m_max}^{n_targets} with distinct nonzero
 entries — so it is enumerated ONCE host-side at construction (numpy,
 trace time) and baked into the compiled program as an integer table
@@ -20,7 +20,7 @@ Mahalanobis grid (one vmap), one gather + sum for every event's
 log-probability, one logsumexp, one einsum for the marginals — no
 data-dependent control flow anywhere.  Event count is
 Σ_k C(n_t, k)·m!/(m−k)! (229 for 3 targets × 6 candidates, 3393 for
-4 × 8) — trivially small next to the MXU's appetite; `new` refuses
+4 × 8) — trivially small for one batched gather; `new` refuses
 past 500k.
 
 Targets share the (f, g, h, q, r) model (the common radar setup);
@@ -168,7 +168,7 @@ def step(model: Model, state: State, candidates, cand_mask, control=None):
     )  # [n_events]
     log_z = jax.scipy.special.logsumexp(ev_logp)
     ev_p = jnp.exp(ev_logp - log_z)
-    ev_p = ev_p / jnp.sum(ev_p)  # exact renormalization (f32 TPU exp)
+    ev_p = ev_p / jnp.sum(ev_p)  # exact renormalization (f32 exp residuals)
 
     betas = jnp.einsum("e,eti->ti", ev_p, model.event_onehot)  # [T, m+1]
     betas = betas / jnp.sum(betas, axis=1, keepdims=True)

@@ -39,7 +39,7 @@ Per-label Bernoulli posterior (exact given the marginals):
 Moment matching preserves the mixture's mean/covariance exactly, so
 the brute-force pins check r, mean AND covariance digit-level.
 
-TPU-first shape: t_max static labeled track slots (r == 0 marks empty),
+Static-shape design: t_max static labeled track slots (r == 0 marks empty),
 padded [m_max, p] frames + masks, births injected at PREDICT into the
 slot pool with a top-t_max existence sort (adaptive measurement-driven
 birth optionally post-update, the Ristic ordering validated in
@@ -263,7 +263,7 @@ def step(model: Model, state: State, candidates, cand_mask):
         ev_logp = jnp.sum(laug[t_idx[None, :], model.events], axis=1)
         log_z = jax.scipy.special.logsumexp(ev_logp)
         ev_p = jnp.exp(ev_logp - log_z)
-        ev_p = ev_p / jnp.sum(ev_p)  # exact renorm (f32 TPU exp)
+        ev_p = ev_p / jnp.sum(ev_p)  # exact renorm (f32 exp residuals)
         betas = jnp.einsum("e,eti->ti", ev_p, model.event_onehot)
         betas = betas / jnp.maximum(
             jnp.sum(betas, axis=1, keepdims=True), tiny)

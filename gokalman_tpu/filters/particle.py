@@ -1,4 +1,4 @@
-"""Bootstrap particle filter (sequential importance resampling), TPU-first.
+"""Bootstrap particle filter (sequential importance resampling).
 
 Beyond the reference: completes the nonlinear tier past the Gaussian
 family (hybrid/UKF/EnKF) for genuinely non-Gaussian posteriors.  The
@@ -7,7 +7,7 @@ design is the framework's standard shape — a pure
 particle cloud as the batch axis, so propagation and weighting are one
 `vmap` each and the whole filter is a single fused XLA computation.
 
-TPU-native choices:
+Design choices:
 - static shapes throughout: the particle count never changes, and
   resampling is an unconditional gather whose *indices* switch between
   systematic-resample positions and `iota` under `jnp.where` — no
@@ -337,7 +337,7 @@ def run_ffbs(state: State, measurements, propagate: Callable,
                               / Σ_l w_k^l f(x_{k+1}^j | x_k^l)
 
     — all in log-space (one [N, N] transition-density matrix per step,
-    O(N²T) total, MXU-shaped batched work).
+    O(N²T) total, batched matrix work).
 
     `trans_logpdf(x_next, x_prev[, u])` is the transition DENSITY the
     sampler `propagate` draws from (the bootstrap proposal); it must be

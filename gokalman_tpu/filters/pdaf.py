@@ -11,7 +11,7 @@ combined innovation, and inflate the covariance by the
 spread-of-innovations term (plus the β_0 chance that none was the
 target).
 
-TPU-first shape: candidates arrive as a PADDED [m_max, p] array with a
+Static-shape design: candidates arrive as a PADDED [m_max, p] array with a
 validity mask (the same static-shape idiom as the padded time-varying
 measurements, vanilla.mask_measurement); gating folds into the mask, β
 weights are computed in log-space softmax style over masked entries,
@@ -119,7 +119,7 @@ def step(model: Model, state: State, candidates, cand_mask, control=None):
     log_z = jax.scipy.special.logsumexp(log_all)
     betas_all = jnp.exp(log_all - log_z)
     # exact renormalization: f32 exp residuals otherwise leave the
-    # probability sum ~1e-4 off on TPU (measured)
+    # probability sum ~1e-4 off in f32
     betas_all = betas_all / jnp.sum(betas_all)
     beta0, betas = betas_all[0], betas_all[1:]
 

@@ -33,7 +33,7 @@ that no existing track claims z_j) seeded from the updated PPP — so
 acquisition needs no adaptive-birth heuristics, it falls out of the
 Poisson component.
 
-TPU-first shape: t_max static track slots (r = 0 marks an empty slot),
+Static-shape design: t_max static track slots (r = 0 marks an empty slot),
 j_max static PPP mixture slots (PHD convention), padded [m_max, p]
 candidate frames with masks, BP as a fixed-iteration lax.fori_loop,
 slot management = top-t_max by existence over the [t_max + m_max]

@@ -16,10 +16,10 @@ The module is a generic *quadrature filter*: any unit rule (points
 predict/update; `gauss_hermite_rule(n, order)` supplies the GH rule and
 `spherical_radial_rule(n)` reproduces the cubature points (pinned
 ==ukf.cubature_params in tests).  Points transform as x + chol(P) ξ — a
-[K, n] batch matmul per step, MXU-shaped, vmappable over ensembles like
+[K, n] batch matmul per step, vmappable over ensembles like
 every filter here.
 
-TPU notes: rules are built HOST-SIDE in numpy at trace time (static
+Design notes: rules are built HOST-SIDE in numpy at trace time (static
 shapes; order^n is a compile-time constant), the step is pure jnp.
 """
 

@@ -1,4 +1,4 @@
-"""Rao-Blackwellized (marginalized) particle filter, TPU-first.
+"""Rao-Blackwellized (marginalized) particle filter.
 
 For conditionally linear-Gaussian models (Schön, Gustafsson & Nordlund
 2005) the linear substate can be marginalized analytically: particles
@@ -19,8 +19,8 @@ p(y | η_{1:k}) = N(y; h(η) + C z⁻, C P⁻ Cᵀ + R) — no likelihood
 approximation — and the per-particle KF measurement update conditions
 z on the same observation.
 
-TPU shape: the particle axis is one `vmap` over everything — the N
-mini-KFs are batched [N, nz, nz] linalg (MXU work), the resampling is
+Static-shape design: the particle axis is one `vmap` over everything —
+the N mini-KFs are batched [N, nz, nz] linalg, the resampling is
 the same branch-free systematic gather as filters.particle.  The whole
 filter is a single fused scan.
 """

@@ -30,9 +30,9 @@ The reference has no consider analysis (its statOD arcs estimate the
 full state, srif_test.go); this closes a capability its own problem
 domain calls for.
 
-TPU-first shape: rather than bespoke block algebra, the filter IS a
+Design: rather than bespoke block algebra, the filter IS a
 vanilla CKF on the augmented state with a zero-masked gain — one code
-path, the MXU does blocks for free, and `run` is the usual single
+path, batched matmuls do blocks for free, and `run` is the usual single
 `lax.scan`.  Augmented model (consider dynamics default to constant
 parameters):
 

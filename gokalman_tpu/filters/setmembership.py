@@ -35,8 +35,8 @@ outliers, `hinf` bounds worst-case energy gain, this module gives
 hard guarantees under hard bounds.  Complements the KF rather than
 replacing it: the ellipsoid is a certificate, the KF a point estimate.
 
-TPU shape: pure step/run over NamedTuple pytrees, lax.scan, fixed
-golden-section iterations, Cholesky solves (no LU on TPU x64).
+Design: pure step/run over NamedTuple pytrees, lax.scan, fixed
+golden-section iterations, Cholesky solves (the shape matrices are SPD).
 No reference counterpart.
 """
 

@@ -29,9 +29,9 @@ state AND input estimates against an augmented vanilla KF with
 Q_d = 1e8 to 4 digits, plus MC unbiasedness/NEES under adversarial
 deterministic inputs.
 
-TPU notes: the pseudo-inverse gain is jnp.linalg.pinv (SVD-based — no
-LU on TPU x64, and the update covariance is structurally singular so
-Cholesky solves are out); everything else is the library's standard
+Design notes: the pseudo-inverse gain is jnp.linalg.pinv (SVD-based:
+the update covariance is structurally singular, so neither LU nor
+Cholesky solves apply); everything else is the library's standard
 pure-step shape under linalg.highp.
 
 No reference counterpart (the reference assumes known inputs

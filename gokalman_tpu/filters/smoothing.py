@@ -67,7 +67,7 @@ def rts_smoother(phis, q, means, covs, offsets=None):
         phi_next, b_next, x_k, p_k, is_last = xs
         p_pred = phi_next @ p_k @ phi_next.T + q
         # C = P_k Φ^T P_pred^{-1} via a solve on the transpose.
-        # PSD solve (Cholesky): TPU x64 has no LU decomposition.
+        # PSD solve (Cholesky): P_pred is SPD.
         c = linalg.solve_psd(p_pred, phi_next @ p_k.T).T
         x_sm = x_k + c @ (x_next - (phi_next @ x_k + b_next))
         p_sm = linalg.sym(p_k + c @ (p_next - p_pred) @ c.T)

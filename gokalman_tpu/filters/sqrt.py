@@ -1,11 +1,11 @@
-"""Square-root Kalman filter (QR-factor propagation), TPU-first.
+"""Square-root Kalman filter (QR-factor propagation).
 
 Rebuild of the reference square-root KF (reference:
 squareroot.go:21-360).  The Cholesky factor S (P = S S^T) is propagated
 instead of P:
 
 - time update: QR of the stacked [ (F S)^T ; sqrtQ^T ] (2n x n) block
-  (squareroot.go:155-185) — one batched QR on the MXU instead of the
+  (squareroot.go:155-185) — one batched QR instead of the
   reference's element-by-element C-matrix fill;
 - measurement update: QR of the (p+n) pre-array
       [[ sqrtR^T,        0      ],

@@ -1,4 +1,4 @@
-"""Square-root information filter (SRIF) for nonlinear systems, TPU-first.
+"""Square-root information filter (SRIF) for nonlinear systems.
 
 Rebuild of the reference SRIF (reference: srif.go:14-340; algorithms
 from Tapley, Schutz & Born "Statistical Orbit Determination"): the
@@ -171,7 +171,7 @@ def _time_update(model: Model, state: State, phi):
     block is the propagated (R̄', b̄') — see module docstring.  Note
     b̄ = R̄ Φ x̂ = R x̂ = b exactly, so the stacked RHS is just b.
     """
-    phi_inv = linalg.inv_qr(phi)  # QR: TPU x64 has no LU
+    phi_inv = linalg.inv_qr(phi)  # QR: backward-stable for general Φ
     r_bar = state.r @ phi_inv
     if model.gamma is not None:
         n = state.b.shape[0]

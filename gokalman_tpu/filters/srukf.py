@@ -1,4 +1,4 @@
-"""Square-root unscented Kalman filter (SR-UKF), TPU-first.
+"""Square-root unscented Kalman filter (SR-UKF).
 
 Beyond the reference: it declares a UKF type and never builds one
 (kalman.go:23-32); filters/ukf.py supplies the plain form, and this is

@@ -30,7 +30,7 @@ under outliers/maneuvers, not residual down-weighting; combine with
 vanilla.robust_step when the outliers are sensor faults rather than
 model tails.
 
-TPU notes: NamedTuple pytrees, lax.scan driver, masked steps for sparse
+Design notes: NamedTuple pytrees, lax.scan driver, masked steps for sparse
 measurements, all algebra under linalg.highp; Joseph-form posterior
 scale (P⁻ − K S Kᵀ rewritten as (I−KH)P⁻(I−KH)ᵀ + KRKᵀ) so the scale
 stays PSD in f32.

@@ -1,4 +1,4 @@
-"""Bierman-Thornton U-D factorized Kalman filter, TPU-first.
+"""Bierman-Thornton U-D factorized Kalman filter.
 
 The third classical factorized form alongside the QR square-root filter
 (reference: squareroot.go:21-50, which motivates factor propagation for
@@ -19,7 +19,7 @@ it exact on the factored representation at f32:
   scalar-measurement special case (squareroot.go:247-252) becomes the
   general path.
 
-TPU design: n is small and static, so the inherently sequential j-loops
+Design: n is small and static, so the inherently sequential j-loops
 (MWGS elimination, Bierman's alpha recursion) are unrolled at trace
 time into [n]-vector ops — no dynamic control flow, XLA fuses the whole
 step; under vmap the unrolled ops batch over the ensemble axis like

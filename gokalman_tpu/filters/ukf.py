@@ -1,4 +1,4 @@
-"""Unscented Kalman filter (UKF), TPU-first.
+"""Unscented Kalman filter (UKF).
 
 The reference *declares* a UKF in its filter taxonomy (reference:
 kalman.go:28-29 UKFType) but never implements one; this completes the

@@ -1,4 +1,4 @@
-"""Vanilla (classic) discrete Kalman filter, TPU-first.
+"""Vanilla (classic) discrete Kalman filter.
 
 Rebuild of the reference CKF (reference: vanilla.go:21-284) as pure
 functions over pytrees:
@@ -513,8 +513,8 @@ def oosm_update(model: Model, state: State, est_k: Estimate, y_tau,
     n = q2.shape[0]
     p_xw = (jnp.eye(n, dtype=q2.dtype) - est_k.gain @ h_k) @ q2
 
-    # Retrodict through Φ(t_k, τ)⁻¹ (QR-based general solve: TPU x64
-    # has no LU).
+    # Retrodict through Φ(t_k, τ)⁻¹ (QR-based general solve:
+    # backward-stable for a general, possibly ill-conditioned Φ).
     x_det = est_k.state - w_hat
     if offset is not None:
         x_det = x_det - jnp.asarray(offset)

@@ -1,6 +1,6 @@
-"""Small-matrix linear algebra for TPU-native state estimation.
+"""Small-matrix linear algebra for state estimation in JAX.
 
-This is the TPU rebuild of the reference's helper tier (reference:
+This is the JAX rebuild of the reference's helper tier (reference:
 helper.go:13-172).  Everything here is a pure, jittable, vmappable
 function over statically-shaped jnp arrays.  The mutable gonum idioms
 (in-place Householder, SymDense conversion-with-check) become
@@ -21,12 +21,14 @@ import jax.numpy as jnp
 def highp(fn):
     """Run `fn` with float32 matmul precision.
 
-    TPU lowers float32 matmuls to bfloat16 MXU passes by default; for
-    covariance recursions that silently turns 1e-7 roundoff into 1e-3
-    per step and destroys NEES calibration over long scans (observed:
-    NEES 12 instead of 6 at T=500).  Every filter step and ensemble
-    pipeline is wrapped with this — the matrices are tiny, so the
-    3-pass f32 MXU mode costs nothing measurable.
+    On the GPU a float32 matmul at default precision may run on the
+    tensor cores in TF32, which keeps a 10-bit mantissa (about three
+    decimal digits); for covariance recursions that turns 1e-7 roundoff
+    into ~1e-3 per step and can destroy NEES calibration over long
+    scans.  "float32" asks XLA for full-precision f32 products (no
+    TF32).  Every filter step and ensemble pipeline is wrapped with
+    this — the matrices are tiny, so the tensor cores have nothing to
+    win there.
     """
 
     @functools.wraps(fn)
@@ -39,13 +41,14 @@ def highp(fn):
 
 @highp
 def factor_product(s) -> jax.Array:
-    """S Sᵀ at f32 matmul precision.
+    """S Sᵀ at full f32 matmul precision.
 
     Factor-carrying estimates (sqrt/srukf/srif/udu) reconstruct P from
-    their factors lazily in properties; those products must NOT run at
-    the TPU's default bf16 matmul precision or the reconstructed
-    covariance (and anything downstream, e.g. NEES) silently loses ~3
-    digits — the filter recursion itself is already under `highp`.
+    their factors lazily in properties, outside the filter step; those
+    products must NOT run at the default matmul precision (TF32 on the
+    GPU) or the reconstructed covariance (and anything downstream,
+    e.g. NEES) silently loses ~4 digits — the filter recursion itself is
+    already under `highp`.
     """
     return s @ jnp.swapaxes(s, -1, -2)
 
@@ -125,10 +128,10 @@ def sign_db(v: jax.Array, deadband: float = 1e-12) -> jax.Array:
 def householder_triangularize(a: jax.Array, n: int, m: int) -> jax.Array:
     """Householder triangularization of the top-left n columns of A.
 
-    TPU-native rewrite of the reference's in-place elementwise kernel
+    Functional rewrite of the reference's in-place elementwise kernel
     (helper.go:142-172): each of the n reflection steps is expressed as
     one masked rank-1 update over the whole (n+m, c) block, so the inner
-    loops vectorize onto the VPU and the function vmaps cleanly over a
+    loops vectorize and the function vmaps cleanly over a
     leading batch axis.  `n` is the number of columns to eliminate, `m`
     the number of extra rows (A has n+m rows and at least n+1 columns).
 
@@ -269,12 +272,14 @@ def chol_update(l: jax.Array, v: jax.Array, weight) -> jax.Array:
 
 
 def solve_qr(a: jax.Array, b: jax.Array) -> jax.Array:
-    """General solve A x = b via QR instead of LU.
+    """General solve A x = b via Householder QR instead of LU.
 
-    XLA:TPU has no float64 LuDecomposition (jnp.linalg.solve/inv fail
-    to compile for x64 OD workloads on chip), but QR, Cholesky and
-    TriangularSolve all lower fine — so the general small-matrix solves
-    on the device path go through QR."""
+    QR is backward-stable without pivoting, so it needs no
+    data-dependent row exchanges, and its error grows with cond(A)
+    rather than with a pivot growth factor; for the small, possibly
+    ill-conditioned general matrices here (STM inverses, H-infinity's
+    M) that is the safer solve.  SPD systems use `solve_psd`
+    (Cholesky) instead."""
     q, r = jnp.linalg.qr(a)
     vector_rhs = b.ndim == a.ndim - 1  # batched-vector b, like jnp.linalg.solve
     y = jnp.swapaxes(q, -1, -2) @ (b[..., None] if vector_rhs else b)
@@ -338,7 +343,7 @@ def golden_section(obj, lo, hi, iters: int):
     evaluation per iteration (the surviving probe's value is carried —
     the golden-ratio identity gr^2 = 1 - gr makes the reused probe
     land exactly on the new grid point).  Returns the bracket
-    midpoint.  Shared by fusion.covariance_intersection / ICI and
+    midpoint.  Shared by fusion.covariance_intersection / inverse CI and
     setmembership.step (previously three diverging copies)."""
     lo = jnp.asarray(lo)
     hi = jnp.asarray(hi)

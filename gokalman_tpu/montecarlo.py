@@ -1,6 +1,6 @@
 """Monte-Carlo ensemble runner.
 
-TPU rebuild of the reference's sequential MC loop (reference:
+JAX rebuild of the reference's sequential MC loop (reference:
 montecarlo.go:92-124): the per-sample `for` loop with `kf.Reset()`
 between samples becomes a `vmap` over per-run PRNG keys — the ensemble
 axis is the data-parallel axis, shardable across chips (see

@@ -1,6 +1,6 @@
 """Native (C++) runtime tier: host-side I/O hot paths.
 
-The TPU compute path is JAX/Pallas; the host runtime around it uses
+The device compute path is JAX/Pallas; the host runtime around it uses
 C++ where Python-level throughput is the bottleneck.  Currently:
 fastcsv — printf-compatible bulk CSV formatting/parsing for estimate
 and Monte-Carlo trace export (the reference's exporter.go/montecarlo.go

@@ -1,6 +1,6 @@
 """Noise models as explicit, key-threaded samplers.
 
-TPU rebuild of the reference's Noise interface (reference:
+JAX rebuild of the reference's Noise interface (reference:
 noise.go:13-164).  The three reference implementations map to:
 
 - Noiseless  -> `noiseless(Q, R)`: zero sqrt factors, sampling returns 0

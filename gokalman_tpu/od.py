@@ -170,9 +170,8 @@ def run_hybrid_od(
 
         # Exact discrete Q for the LTI chain r'' = w, w' = -w/τ + u.
         # Discretized on the HOST at trace time (all inputs are static
-        # config; the in-graph f64 expm would need an LuDecomposition
-        # the TPU x64 path lacks) — c2d.van_loan_host shares the block
-        # algebra with the jittable c2d.van_loan.
+        # config, so there is nothing to trace) — c2d.van_loan_host
+        # shares the block algebra with the jittable c2d.van_loan.
         import numpy as _np
 
         from . import c2d
@@ -505,14 +504,11 @@ def run_srif_od(
     reference, and the observations are generated in-scan (meas.obs is
     ignored; has_meas/station_idx still schedule the passes).  This is
     how the reference's own tests work — one propagator instance feeds
-    both truth and filter (srif_test.go:89-125) — and it is REQUIRED
-    for reference-strict gates on the TPU's emulated x64: separately
-    compiled f64 programs on that backend reproduce each other only to
-    ~1e-7 relative (measured: 2e-4 km of range on a truth regenerated
-    by a second identical-math program), which a Q=0 truth-start filter
-    cannot absorb; batching truth and reference through one compiled
-    call makes the discrepancy cancel in the innovation by
-    construction.  The co-propagated truth is returned in
+    both truth and filter (srif_test.go:89-125).  A Q=0 truth-start
+    filter cannot absorb any truth/filter propagator mismatch (two
+    separately compiled programs may round differently); batching truth
+    and reference through one compiled call makes such a discrepancy
+    cancel in the innovation by construction.  The co-propagated truth is returned in
     ODResult.truth."""
     x0_ref = jnp.asarray(x0_ref)
     dtype = x0_ref.dtype

@@ -2,7 +2,7 @@
 
 The reference's per-step Update loop is inherently serial
 (vanilla.go:128-220 — SURVEY.md §5 notes the recurrence x_{k+1}=f(x_k)
-as the un-parallelizable axis).  On TPU that's not the end of the
+as the un-parallelizable axis).  On a parallel device that's not the end of the
 story: the Kalman filter's conditional-density recursion is an
 *associative* operation on (A, b, C, eta, J) elements [Särkkä &
 García-Fernández, "Temporal Parallelization of Bayesian Smoothers",

@@ -3,7 +3,7 @@
 The reference's throughput workload (SURVEY.md §3.2) is
 runs × steps × Vanilla.Update with everything materialized per step
 (montecarlo.go:108-117, chisquare.go:37-79).  Two structural facts make
-the TPU version orders of magnitude faster than a literal vmap:
+the fused version orders of magnitude faster than a literal vmap:
 
 1. **The covariance path is run-independent.**  With shared (F, H, Q, R)
    the P/K/NEES-weight recurrences do not depend on the data, so they
@@ -18,10 +18,9 @@ the TPU version orders of magnitude faster than a literal vmap:
    pipeline writes runs×steps estimate objects to heap; this writes
    O(T·n) floats to HBM.
 
-Layout: ensembles are lanes-major [n, S] (state dim on sublanes, the
-100k ensemble on 128-wide lanes) so every op is a well-tiled VPU op or
-a [n,n]x[n,S] MXU matmul — never an [S,6]-shaped tile that wastes
-121/128 lanes.
+Layout: ensembles are [n, S] (state dim first, the 100k ensemble
+last and contiguous), so every op is an elementwise op over S or an
+[n,n]x[n,S] matmul.
 """
 
 from __future__ import annotations
@@ -336,7 +335,7 @@ def mc_chi_square(
     MC mean/stddev traces — without materializing any [S, T, ...] array.
 
     `ensemble_sharding` (a jax.sharding.NamedSharding over the S axis)
-    shards the ensembles across chips; the per-step means become ICI
+    shards the ensembles across devices; the per-step means become
     all-reduces inserted by XLA.  `init_spread=True` draws x0 ~
     N(state0.x, P0) per run (the robot example's random initial state).
 

@@ -1,27 +1,29 @@
-"""Pallas TPU kernel: fully fused Monte-Carlo + chi-square pipeline.
+"""Fused Monte-Carlo + chi-square pipeline as one GPU kernel.
 
-This is the native tier (SURVEY.md §2 note: Pallas kernels replace the
-reference's gonum/BLAS calls).  One kernel launch runs the complete
-runs x steps workload of SURVEY.md §3.2:
+Pallas on the Triton route.  One kernel launch runs the complete
+runs x steps workload of SURVEY.md §3.2, the reference's
+NewMonteCarloRuns followed by NewChiSquare (montecarlo.go:92-119,
+chisquare.go:16-95):
 
-- the ensemble state pair (truth, estimate) lives in VMEM scratch for
-  the whole T-loop — zero HBM traffic for the carries (the XLA scan
-  round-trips ~10 GB for the same workload);
-- Gaussian noise is generated in-kernel from the per-core hardware PRNG
-  (pltpu.prng_random_bits) via Box-Muller (both branches used) — no key
-  bookkeeping, no HBM-resident noise tensors;
-- the per-step gain/NEES/NIS weight matrices (run-independent, computed
-  once by ops.ensemble._covariance_path) are prefetched to SMEM and
-  read as scalars, so every vector op is a full-width VPU broadcast-FMA;
-- per-step statistics reduce through one MXU pass each (arr @ ones):
-  VPU cross-lane shifts cost ~40x more;
-- only the [stats_rows, T] per-tile partial sums leave the kernel.
+- each program owns a power-of-two block of ensemble members and keeps
+  their (truth, estimate) state pair in registers for the whole T loop,
+  so the carries never leave the chip; the lax.scan pipeline of
+  ops.ensemble reads and writes them in device memory every step;
+- Gaussian noise comes from a counter-based generator written into the
+  kernel: Threefry-2x32 keyed by (seed, global member index, step,
+  draw), then Box-Muller.  The draws do not depend on the block size,
+  and `mc_chi_square_reference` replays the identical noise in plain
+  jnp, which is what the kernel is compared with element by element;
+- the per-step gains and NEES/NIS weights (run-independent, computed
+  once by ops.ensemble's covariance path) are loaded as scalars that
+  are uniform across the block;
+- each program sums its block's per-step statistics into a
+  [grid, stats_rows, T] array that XLA then reduces: deterministic, no
+  atomics.
 
-Layout: each state component is an [8, TILE/8] block (full sublane
-utilization); matvecs are unrolled as scalar-broadcast accumulations.
-The kernel is built per (n, p, tile) by `_build` and cached — any
-state/measurement size works; `ops.ensemble.mc_chi_square` remains the
-general (time-varying-model) path.
+The kernel is built per (n, p, tile, tv, ctrl) by `_build` and cached,
+so any state/measurement size works; `ops.ensemble.mc_chi_square`
+remains the general path (lagged measurements, sharded layouts).
 """
 
 from __future__ import annotations
@@ -31,178 +33,252 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from .. import linalg
 from ..filters import vanilla
 from .ensemble import (
     ChiSquareResult,
     _covariance_path,
+    _covariance_path_sqrt,
     _covariance_path_tv,
     _masked_schedule,
 )
 
-TILE = 8192  # default ensemble members per grid program
+# Members per program.  One member per thread (a warp per 32 members)
+# measured fastest at 98,304 x 1,000 on an H100 (PERF.md).
+TILE = 32
+
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _sincos_turns(u):
-    """(cos 2πu, sin 2πu) for u in [0, 1) via quadrant-select
-    polynomials — measured ~2x faster than Mosaic's builtin cos+sin
-    pair IN SITU (7030 -> ~3400 ns/program-step on the full 98304x1000
-    kernel): the builtin pays a general range reduction the turns
-    parameterization never needs.
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds (the block cipher behind
+    jax.random's default generator) on uint32 arrays.
 
-    Coefficients are an endpoint-CONSTRAINED weighted least-squares fit
-    of sin/cos(π/2 x) on x in [0, 1] (degree 9 odd / 8 even): max
-    |error| = 2.1e-7 in f32 with s(1)=1 and c(1)=6e-8 held exactly, so
-    the quadrant handoff is continuous.  The Box-Muller output stays
-    exact Gaussian far below any statistical resolution (hardware
-    moment + deep-tail gates at n=4.2M see nothing).
-    """
-    t4 = 4.0 * u  # quarter-turns in [0, 4)
-    q = jnp.floor(t4)
-    x = t4 - q  # [0, 1) within the quadrant
-    x2 = x * x
-    sp = x * (1.5707963257 + x2 * (-0.6459638093
-         + x2 * (0.0796899578 + x2 * (-0.0046740125
-         + x2 * 0.0001515384))))
-    cp = 1.0 + x2 * (-1.2336986638 + x2 * (0.2536513764
-         + x2 * (-0.0208101642 + x2 * 0.0008574517)))
-    qi = q.astype(jnp.int32)
-    swap = (qi & 1) == 1
-    c0 = jnp.where(swap, sp, cp)
-    s0 = jnp.where(swap, cp, sp)
-    negc = (qi == 1) | (qi == 2)
-    negs = (qi == 2) | (qi == 3)
-    return jnp.where(negc, -c0, c0), jnp.where(negs, -s0, s0)
+    Plain jnp with only add, xor and shifts, so the same function runs
+    inside the kernel and outside it."""
+    k2 = k0 ^ k1 ^ jnp.uint32(0x1BD11BDA)
+    ks = (k0, k1, k2)
+    x0 = x0 + k0
+    x1 = x1 + k1
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = x0 + x1
+            x1 = (x1 << jnp.uint32(r)) | (x1 >> jnp.uint32(32 - r))
+            x1 = x1 ^ x0
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + ks[(i + 2) % 3] + jnp.uint32(i + 1)
+    return x0, x1
 
 
-def _normal_pair(shape):
-    """Two independent standard-normal arrays from one Box-Muller pair.
-
-    Draws 2x random bits, maps the low 24 bits to uniforms (int32-safe:
-    Mosaic has no uint32->f32 cast), returns both the cos and sin
-    branches so no entropy is wasted.  The angle evaluates through
-    _sincos_turns (in turns, no 2π multiply, no range reduction).
-    """
-    bits1 = pltpu.prng_random_bits(shape)
-    bits2 = pltpu.prng_random_bits(shape)
-    mask = jnp.int32(0x00FFFFFF)
-    u1 = (bits1 & mask).astype(jnp.float32) * (2.0**-24) + (2.0**-25)
-    u2 = (bits2 & mask).astype(jnp.float32) * (2.0**-24)
+def _normal_pair(bits0, bits1):
+    """Two independent standard normals from two uint32 words
+    (Box-Muller, both branches).  The top 24 bits of each word make the
+    uniforms; u1 is centred in its bin so log(u1) is always finite."""
+    u1 = ((bits0 >> jnp.uint32(8)).astype(jnp.int32).astype(jnp.float32)
+          + 0.5) * (2.0**-24)
+    u2 = (bits1 >> jnp.uint32(8)).astype(jnp.int32).astype(jnp.float32) * (
+        2.0**-24)
     r = jnp.sqrt(-2.0 * jnp.log(u1))
-    c, s = _sincos_turns(u2)
-    return r * c, r * s
+    angle = (2.0 * jnp.pi) * u2
+    return r * jnp.cos(angle), r * jnp.sin(angle)
 
 
-def _normals(shape):
-    """One standard-normal array (single Box-Muller branch)."""
-    return _normal_pair(shape)[0]
+def _draws(key, member, slot, count: int, stride: int):
+    """`count` standard normals per member for one step slot.
 
-
-def _normal_batch(shape, count: int):
-    """`count` independent normal arrays using ceil(count/2) BM pairs."""
+    Counter words: x0 = global member index, x1 = slot * stride + pair.
+    Slot 0 is the initial spread, slot t+1 is step t."""
     out = []
-    for _ in range((count + 1) // 2):
-        a, b = _normal_pair(shape)
-        out += [a, b]
+    for j in range((count + 1) // 2):
+        ctr = (slot * stride + j).astype(jnp.uint32)
+        out += _normal_pair(*threefry2x32(key[0], key[1], member, ctr))
     return out[:count]
 
 
-def _normal_clt(shape):
-    """One approximate-normal array from a SINGLE prng draw: popcount
-    of the high 24 bits (Binomial(24): mean 12, var 6) plus a uniform
-    dither from the low 8 bits (de-lattices the support), scaled to
-    unit variance.
-
-    Moments: mean/variance/skewness EXACT (0, 1, 0); excess kurtosis
-    -1/12.17 = -0.082; support ±(12.5/sqrt(6.083)) = ±5.07 sigma.  In
-    the linear MC pipeline the NEES/NIS *means* depend on the noise
-    only through its first two moments, so the consistency gates are
-    provably unaffected; the trade is mildly thinner extreme tails.
-    Measured (v5e, 98304x1000 in-situ): Box-Muller transcendentals are
-    ~60% of the whole kernel, this path removes them.
-    """
-    bits = pltpu.prng_random_bits(shape)
-    pc = jax.lax.population_count((bits >> 8) & jnp.int32(0x00FFFFFF))
-    dither = ((bits & jnp.int32(0xFF)).astype(jnp.float32) + 0.5) * (
-        1.0 / 256.0
-    ) - 0.5
-    var = 6.0 + (1.0 - 1.0 / 256.0**2) / 12.0
-    return (pc.astype(jnp.float32) - 12.0 + dither) * (var**-0.5)
+def _compiler_params(tile):
+    """One member per thread: a warp per 32 members (up to 8 warps)."""
+    return plt.CompilerParams(num_warps=max(1, min(tile // 32, 8)),
+                              num_stages=1)
 
 
-def _normal_batch_clt(shape, count: int):
-    return [_normal_clt(shape) for _ in range(count)]
+def _key(seed):
+    """uint32 key pair from an integer seed."""
+    return jnp.stack([jnp.asarray(seed).astype(jnp.uint32),
+                      jnp.uint32(0x5EED)])
 
 
-def sample_normals_pallas(count: int, seed, lanes: int = 2048,
-                          generator: str = "box_muller") -> jax.Array:
-    """Draw `count` (approximately) standard normals with one of the
-    kernel's generators on the TPU hardware PRNG: "box_muller" (exact,
-    _normal_pair) or "clt" (arithmetic-only _normal_clt — the
-    fast_rng=True kernel path).
+class _Layout:
+    """Offsets of the packed per-step path row and of the fixed scalars.
 
-    Exists so the RNG statistics are testable in isolation — the fused
-    pipeline's NEES/NIS gates (bench.py) would mask a subtly broken
-    generator behind filter averaging; tests/test_pallas_mc.py checks
-    moments and tail quantiles of this output on hardware (the Mosaic
-    interpreter stubs prng_random_bits to zeros, so only compiled runs
-    are meaningful).
-    """
-    per_block = 8 * lanes  # one (8, lanes) f32 block per branch
-    blocks = (count + 2 * per_block - 1) // (2 * per_block)
+    Path row: K [n,p], Pinv [n,n], Sinv [p,p], the noise-free truth c
+    [n], then (tv) H [p,n] and chol R [p,p], then (ctrl) G·u [n].
+    Fixed: F, Lq, H, Lr, x0, L0 (the initial-spread factor)."""
 
-    def kernel(seed_ref, out_ref):
-        pltpu.prng_seed(seed_ref[0] + pl.program_id(0))
-        if generator == "clt":
-            a, b = _normal_clt((8, lanes)), _normal_clt((8, lanes))
-        else:
-            a, b = _normal_pair((8, lanes))
-        out_ref[0] = jnp.concatenate([a, b], axis=0)
+    def __init__(self, n, p, tv, ctrl):
+        self.n, self.p, self.tv, self.ctrl = n, p, tv, ctrl
+        self.k = 0
+        self.pinv = n * p
+        self.sinv = self.pinv + n * n
+        self.c = self.sinv + p * p
+        end = self.c + n
+        self.h_row = self.lr_row = self.gu = 0
+        if tv:
+            self.h_row = end
+            end += p * n
+            self.lr_row = end
+            end += p * p
+        if ctrl:
+            self.gu = end
+            end += n
+        self.row_len = end
+        self.f = 0
+        self.lq = n * n
+        self.h = 2 * n * n
+        self.lr = self.h + p * n
+        self.x0 = self.lr + p * p
+        self.l0 = self.x0 + n
+        self.fixed_len = self.l0 + n * n
+        self.stride = (n + p + 1) // 2  # Box-Muller pairs per step slot
+        # NEES, NIS, Σd [n], Σd² [n] with d = x_t - c: shifting by the
+        # noise-free truth keeps the sum-of-squares variance accurate
+        # when the ensemble spread is small against its mean.
+        self.stats_rows = 2 + 2 * n
 
-    out = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(blocks,),
-            in_specs=[],
-            out_specs=pl.BlockSpec((1, 16, lanes), lambda i, *_: (i, 0, 0)),
-        ),
-        out_shape=jax.ShapeDtypeStruct((blocks, 16, lanes), jnp.float32),
-    )(jnp.asarray(seed, jnp.int32).reshape(1))
-    return out.reshape(-1)[:count]
+
+def _init(lay, fixed, key, member):
+    """Initial (truth, estimate) component lists: x0 + L0 z and x0."""
+    n = lay.n
+    z0 = _draws(key, member, jnp.int32(0), n, lay.stride)
+    x0 = [fixed(lay.x0 + i) for i in range(n)]
+    zero = jnp.zeros(member.shape, jnp.float32)
+    xt = []
+    for i in range(n):
+        acc = zero + x0[i]
+        for j in range(i + 1):  # L0 lower triangular
+            acc = acc + fixed(lay.l0 + i * n + j) * z0[j]
+        xt.append(acc)
+    return xt, [zero + x0[i] for i in range(n)]
+
+
+def _step(lay, fixed, row, key, member, t, xt, xe):
+    """One consistent-measurement MC step for every member.
+
+    `fixed(off)` / `row(off)` return the scalar at `off` of the fixed
+    block / of step t's path row.  Returns the new carries and the
+    per-member statistics [NEES, NIS, d..., d²...], d = x_t - c_t."""
+    n, p = lay.n, lay.p
+    wv = _draws(key, member, t + 1, n + p, lay.stride)
+    w, v = wv[:n], wv[n:]
+    if lay.tv:
+        hm = lambda i, j: row(lay.h_row + i * n + j)
+        lrm = lambda i, j: row(lay.lr_row + i * p + j)
+    else:
+        hm = lambda i, j: fixed(lay.h + i * n + j)
+        lrm = lambda i, j: fixed(lay.lr + i * p + j)
+
+    # Truth: x_t' = F x_t (+ G u) + Lq w; replay predict x_e^- = F x_e (+ G u).
+    zero = jnp.zeros_like(xt[0])
+    xt_new, xp = [], []
+    for i in range(n):
+        acc = accp = zero
+        for j in range(n):
+            fij = fixed(lay.f + i * n + j)
+            acc = acc + fij * xt[j]
+            accp = accp + fij * xe[j]
+        for j in range(i + 1):  # Lq lower triangular
+            acc = acc + fixed(lay.lq + i * n + j) * w[j]
+        if lay.ctrl:
+            gu = row(lay.gu + i)
+            acc = acc + gu
+            accp = accp + gu
+        xt_new.append(acc)
+        xp.append(accp)
+
+    # Innovation = H (x_t' - x_e^-) + Lr v  (y generated from x_t').
+    d = [xt_new[j] - xp[j] for j in range(n)]
+    innov = []
+    for i in range(p):
+        acc = jnp.zeros_like(xt[0])
+        for j in range(n):
+            acc = acc + hm(i, j) * d[j]
+        for j in range(i + 1):  # chol(R) lower triangular
+            acc = acc + lrm(i, j) * v[j]
+        innov.append(acc)
+
+    # Update x_e' = x_e^- + K innov; err = x_t' - x_e'.
+    xe_new, err = [], []
+    for i in range(n):
+        upd = xp[i]
+        for j in range(p):
+            upd = upd + row(lay.k + i * p + j) * innov[j]
+        xe_new.append(upd)
+        err.append(xt_new[i] - upd)
+
+    # NEES / NIS quadratic forms (symmetric: diagonal + 2x upper).
+    nees = jnp.zeros_like(xt[0])
+    for i in range(n):
+        nees = nees + row(lay.pinv + i * n + i) * err[i] * err[i]
+        for j in range(i + 1, n):
+            nees = nees + 2.0 * row(lay.pinv + i * n + j) * err[i] * err[j]
+    nis = jnp.zeros_like(xt[0])
+    for i in range(p):
+        nis = nis + row(lay.sinv + i * p + i) * innov[i] * innov[i]
+        for j in range(i + 1, p):
+            nis = nis + 2.0 * row(lay.sinv + i * p + j) * innov[i] * innov[j]
+    d = [xt_new[i] - row(lay.c + i) for i in range(n)]
+    stats = [nees, nis] + d + [x * x for x in d]
+    return xt_new, xe_new, stats
 
 
 @functools.partial(jax.jit,
                    static_argnames=("steps", "tv", "ctrl", "cov_path"))
+@linalg.highp
 def _compute_path(model, state0, steps, controls=None, hs=None, rs=None,
-                  meas_masks=None, tv=False, ctrl=False,
-                  cov_path="moment"):
-    from .ensemble import _covariance_path_sqrt
-
+                  meas_masks=None, tv=False, ctrl=False, cov_path="moment"):
     if tv:
         hs_m, rs_m, lrs = _masked_schedule(model, hs, rs, meas_masks)
         if cov_path == "sqrt":
             k_path, s_inv_path, p_inv_path = _covariance_path_sqrt(
-                model, state0.p, hs=hs_m, rs=rs_m
-            )
+                model, state0.p, hs=hs_m, rs=rs_m)
         else:
             k_path, s_inv_path, p_inv_path = _covariance_path_tv(
-                model, state0.p, hs_m, rs_m
-            )
+                model, state0.p, hs_m, rs_m)
     else:
         hs_m = lrs = None
         if cov_path == "sqrt":
             k_path, s_inv_path, p_inv_path = _covariance_path_sqrt(
-                model, state0.p, steps=steps
-            )
+                model, state0.p, steps=steps)
         else:
             k_path, s_inv_path, p_inv_path = _covariance_path(
-                model, state0.p, steps
-            )
+                model, state0.p, steps)
     gus = controls @ model.g.T if ctrl else None  # [T,m]@[m,n]
-    return k_path, s_inv_path, p_inv_path, hs_m, lrs, gus
+    return (k_path, s_inv_path, p_inv_path,
+            _noise_free_truth(model.f, state0.x, gus, steps), hs_m, lrs, gus)
+
+
+def _noise_free_truth(f, x0, gus, steps):
+    """c_t = F c_{t-1} (+ G u_t), c_{-1} = x0, for all t in O(log T)
+    depth: the prefix composition of the affine maps x -> F x + G u_t
+    (a sequential scan would be T tiny dependent launches)."""
+    n = f.shape[0]
+    a = jnp.broadcast_to(f, (steps, n, n))
+    b = jnp.zeros((steps, n), f.dtype) if gus is None else gus
+
+    def compose(earlier, later):
+        a1, b1 = earlier
+        a2, b2 = later
+        return a2 @ a1, jnp.einsum("...ij,...j->...i", a2, b1) + b2
+
+    a_pre, b_pre = jax.lax.associative_scan(compose, (a, b))
+    return a_pre @ x0 + b_pre
+
+
+def _flags(model, controls, hs, rs, meas_masks):
+    tv = hs is not None or rs is not None or meas_masks is not None
+    ctrl = controls is not None and model.g is not None
+    return tv, ctrl
 
 
 def precompute_path(model, state0, steps, controls=None, hs=None, rs=None,
@@ -210,406 +286,118 @@ def precompute_path(model, state0, steps, controls=None, hs=None, rs=None,
     """Seed-independent per-step path for mc_chi_square_pallas: gains,
     NEES/NIS weight factors, masked schedule, control increments.
 
-    Depends only on (model, state0, schedule) — never on the seed — so
-    repeated experiments (new seeds, same model) should compute it once
-    and pass it via `path=`; the kernel launch is then the only
-    per-experiment device cost.  bench.py measures exactly this
-    steady-state split (the path is ~40 ms of tiny [T,n,n] ops on the
-    chip, larger than the 98304x1000 kernel itself).
+    Depends only on (model, state0, schedule), never on the seed, so
+    repeated experiments (new seeds, same model) compute it once and
+    pass it via `path=`; the kernel launch is then the only
+    per-experiment device cost.
 
     `cov_path="sqrt"` switches the recurrence to the factored chol/QR
     array (ops.ensemble._covariance_path_sqrt) for cond ~1e10-class f32
-    models; the kernel consumes the same per-step arrays either way.
-    """
-    tv = hs is not None or rs is not None or meas_masks is not None
-    ctrl = controls is not None and model.g is not None
+    models; the kernel consumes the same per-step arrays either way."""
+    tv, ctrl = _flags(model, controls, hs, rs, meas_masks)
     return _compute_path(model, state0, steps, controls, hs, rs, meas_masks,
                          tv=tv, ctrl=ctrl, cov_path=cov_path)
 
 
+def _pack(model, state0, path, lay, init_spread):
+    """Flatten the path into [T, row_len] rows and the fixed model
+    scalars into one f32 vector."""
+    k_path, s_inv_path, p_inv_path, shift, hs_m, lrs, gus = path
+    t = k_path.shape[0]
+    cols = [k_path.reshape(t, -1), p_inv_path.reshape(t, -1),
+            s_inv_path.reshape(t, -1), shift]
+    if lay.tv:
+        cols += [hs_m.reshape(t, -1), lrs.reshape(t, -1)]
+    if lay.ctrl:
+        cols.append(gus.reshape(t, -1))
+    rows = jnp.concatenate(cols, axis=1).astype(jnp.float32)
+    spread_l = (linalg.chol_or_eigh_sqrt(state0.p) if init_spread
+                else jnp.zeros_like(state0.p))
+    fixed = jnp.concatenate([
+        m.reshape(-1) for m in (model.f, model.noise.sqrt_q, model.h,
+                                model.noise.sqrt_r, state0.x, spread_l)
+    ]).astype(jnp.float32)
+    return rows, fixed
+
+
 @functools.lru_cache(maxsize=16)
-def _build(n: int, p: int, tile: int, tv: bool = False, ctrl: bool = False,
-           chunk: int = 0, fast_rng: bool = False):
-    """Build the fused kernel + host wrapper for a given shape triple.
+def _build(n: int, p: int, tile: int, tv: bool, ctrl: bool, interpret: bool):
+    """pallas_call computing per-program sums of the per-step
+    statistics for a (n, p, tile, tv, ctrl) shape class."""
+    if tile < 1 or tile & (tile - 1):
+        raise ValueError(f"tile must be a power of two, got {tile}")
+    lay = _Layout(n, p, tv, ctrl)
 
-    tv=True streams the per-step measurement model (H_k, chol R_k)
-    through the SMEM path rows alongside the gains — the kernel-speed
-    form of the jerkcar-class padded schedule (the gains already vary
-    per step, so time-varying H/R costs only the extra scalar reads).
-    ctrl=True adds a per-step G·u_k vector to both the truth and replay
-    predictions (main.go:149's control argument).
+    def kernel(rows_ref, fixed_ref, ctr_ref, samples_ref, stats_ref):
+        pid = pl.program_id(0)
+        steps = rows_ref.shape[0]
+        local = pid * tile + jnp.arange(tile, dtype=jnp.int32)
+        valid = local < samples_ref[0]
+        key = (ctr_ref[0], ctr_ref[1])
+        member = local.astype(jnp.uint32) + ctr_ref[2]
+        fvals = [fixed_ref[i] for i in range(lay.fixed_len)]
+        fixed = lambda off: fvals[off]
+        xt, xe = _init(lay, fixed, key, member)
 
-    chunk>0 (lanes, multiple of 128) switches the step body to a
-    lane-chunked schedule: the whole per-step pipeline runs on
-    register-sized (8, chunk) blocks, one chunk at a time, with per-step
-    statistics accumulated across chunks in registers and reduced
-    through one small MXU dot.  Measured NEUTRAL on v5e for the (6, 3)
-    tile=32768 benchmark shape (48.7 -> 48.0 ms per launch: Mosaic's
-    default schedule already keeps the working set resident) — kept as
-    a tuning knob for larger (n, p) where the ~2n(n+p) full-width
-    intermediates would exceed the register file.
-    """
-    if tile % 1024:
-        raise ValueError("tile must be a multiple of 1024")
-    if chunk and (chunk % 128 or (tile // 8) % chunk):
-        raise ValueError("chunk must be a multiple of 128 dividing tile//8")
-    normal_batch = _normal_batch_clt if fast_rng else _normal_batch
-    # SMEM path packing per step: K [n,p], Pinv [n,n], Sinv [p,p],
-    # then (tv) H [p,n] + cholR [p,p], then (ctrl) G·u [n].
-    k_off = 0
-    pi_off = n * p
-    si_off = pi_off + n * n
-    end = si_off + p * p
-    h_row_off = lr_row_off = gu_off = 0
-    if tv:
-        h_row_off = end
-        end += p * n
-        lr_row_off = end
-        end += p * p
-    if ctrl:
-        gu_off = end
-        end += n
-    row_len = ((end + 7) // 8) * 8
-    # Fixed scalars: F, Lq, H, Lr, x0, L0 (init-spread chol).
-    f_off = 0
-    lq_off = f_off + n * n
-    h_off = lq_off + n * n
-    lr_off = h_off + p * n
-    x0_off = lr_off + p * p
-    l0_off = x0_off + n
-    fixed_len = ((l0_off + n * n + 7) // 8) * 8
-    # Stats rows: 0 NEES, 1 NIS, 2..2+n-1 Σx, 2+n..2+2n-1 Σx².
-    x2_row = 2 + n
-    stats_rows = ((2 + 2 * n + 7) // 8) * 8
+        def body(t, carry):
+            xt, xe = carry
+            row = lambda off: rows_ref[t, off]
+            xt, xe, stats = _step(lay, fixed, row, key, member, t, xt, xe)
+            for q, s in enumerate(stats):
+                stats_ref[pid, q, t] = jnp.sum(jnp.where(valid, s, 0.0))
+            return xt, xe
 
-    def kernel_body(path_ref, fixed_ref, seed_ref, steps_ref,
-                    stats_ref, xt_ref, xe_ref):
-        tile_id = pl.program_id(0)
-        pltpu.prng_seed(seed_ref[0] + tile_id)
-        steps = steps_ref[0]
-        cshape = (8, tile // 8)
+        jax.lax.fori_loop(0, steps, body, (xt, xe))
 
-        fmat = [[fixed_ref[f_off + i * n + j] for j in range(n)] for i in range(n)]
-        lqmat = [[fixed_ref[lq_off + i * n + j] for j in range(n)] for i in range(n)]
-        hmat = [[fixed_ref[h_off + i * n + j] for j in range(n)] for i in range(p)]
-        lrmat = [[fixed_ref[lr_off + i * p + j] for j in range(p)] for i in range(p)]
-        x0v = [fixed_ref[x0_off + i] for i in range(n)]
-        l0mat = [[fixed_ref[l0_off + i * n + j] for j in range(n)] for i in range(n)]
-
-        ones_mat = jnp.ones((tile // 8, 128), jnp.float32)
-
-        def fsum(arr):
-            partial = jax.lax.dot_general(
-                arr, ones_mat, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-            return jnp.sum(partial) * (1.0 / 128.0)
-
-        def comp(ref, i):
-            return ref[i * 8 : (i + 1) * 8, :]
-
-        z0 = normal_batch(cshape, n)
-        for i in range(n):
-            base = jnp.full(cshape, x0v[i], jnp.float32)
-            spread = jnp.zeros(cshape, jnp.float32)
-            for j in range(i + 1):  # Cholesky factor: lower triangular
-                spread += l0mat[i][j] * z0[j]
-            xt_ref[i * 8 : (i + 1) * 8, :] = base + spread
-            xe_ref[i * 8 : (i + 1) * 8, :] = base
-
-        def body(t, _):
-            row = t * row_len
-            wv = normal_batch(cshape, n + p)
-            w, v = wv[:n], wv[n:]
-
-            # Time-varying mode reads the step's H / chol(R) from the
-            # SMEM path row; otherwise the fixed model matrices apply.
-            if tv:
-                hm = [[path_ref[row + h_row_off + i * n + j]
-                       for j in range(n)] for i in range(p)]
-                lrm = [[path_ref[row + lr_row_off + i * p + j]
-                        for j in range(p)] for i in range(p)]
-            else:
-                hm, lrm = hmat, lrmat
-
-            xt = [comp(xt_ref, i) for i in range(n)]
-            xe = [comp(xe_ref, i) for i in range(n)]
-
-            # Truth: x_t' = F x_t (+ G u) + Lq w (consistent-measurement
-            # mode: y is generated from the post-predict truth).
-            xt_new = [None] * n
-            xp = [None] * n
-            for i in range(n):
-                acc = jnp.zeros(cshape, jnp.float32)
-                accp = jnp.zeros(cshape, jnp.float32)
-                for j in range(n):
-                    acc += fmat[i][j] * xt[j]
-                    accp += fmat[i][j] * xe[j]  # replay predict F x_e
-                for j in range(i + 1):  # Lq lower triangular
-                    acc += lqmat[i][j] * w[j]
-                if ctrl:
-                    gu_i = path_ref[row + gu_off + i]
-                    acc += gu_i
-                    accp += gu_i
-                xt_new[i] = acc
-                xp[i] = accp
-
-            # Innovation = H (x_t' - x_e^-) + Lr v.
-            innov = [None] * p
-            for i in range(p):
-                acc = jnp.zeros(cshape, jnp.float32)
-                for j in range(n):
-                    acc += hm[i][j] * (xt_new[j] - xp[j])
-                for j in range(i + 1):  # chol(R) lower triangular
-                    acc += lrm[i][j] * v[j]
-                innov[i] = acc
-
-            # Update: x_e' = x_e^- + K innov; err = x_t' - x_e'.
-            err = [None] * n
-            for i in range(n):
-                upd = xp[i]
-                for j in range(p):
-                    upd += path_ref[row + k_off + i * p + j] * innov[j]
-                xe_ref[i * 8 : (i + 1) * 8, :] = upd
-                xt_ref[i * 8 : (i + 1) * 8, :] = xt_new[i]
-                err[i] = xt_new[i] - upd
-
-            # NEES / NIS quadratic forms (symmetric: diag + 2x upper).
-            nees = jnp.zeros(cshape, jnp.float32)
-            for i in range(n):
-                nees += path_ref[row + pi_off + i * n + i] * err[i] * err[i]
-                for j in range(i + 1, n):
-                    nees += (2.0 * path_ref[row + pi_off + i * n + j]) * err[i] * err[j]
-            nis = jnp.zeros(cshape, jnp.float32)
-            for i in range(p):
-                nis += path_ref[row + si_off + i * p + i] * innov[i] * innov[i]
-                for j in range(i + 1, p):
-                    nis += (2.0 * path_ref[row + si_off + i * p + j]) * innov[i] * innov[j]
-
-            # All 2+2n per-step reductions in ONE MXU pass set: stack
-            # the quantities and contract against ones once, then each
-            # (8,128) partial collapses with a cheap VPU reduce.
-            block = jnp.concatenate(
-                [nees, nis] + xt_new + [x * x for x in xt_new], axis=0
-            )
-            partial = jax.lax.dot_general(
-                block, ones_mat, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-            for q in range(2 + 2 * n):
-                stats_ref[q, t] = jnp.sum(partial[q * 8:(q + 1) * 8, :]) * (
-                    1.0 / 128.0
-                )
-            return ()
-
-        jax.lax.fori_loop(0, steps, body, ())
-
-    def kernel_body_chunked(path_ref, fixed_ref, seed_ref, steps_ref,
-                            stats_ref, xt_ref, xe_ref):
-        """Lane-chunked schedule (chunk > 0): identical math, but each
-        step processes the ensemble in (8, chunk) register blocks."""
-        tile_id = pl.program_id(0)
-        pltpu.prng_seed(seed_ref[0] + tile_id)
-        steps = steps_ref[0]
-        nchunks = (tile // 8) // chunk
-        cshape = (8, chunk)
-
-        fmat = [[fixed_ref[f_off + i * n + j] for j in range(n)] for i in range(n)]
-        lqmat = [[fixed_ref[lq_off + i * n + j] for j in range(n)] for i in range(n)]
-        hmat = [[fixed_ref[h_off + i * n + j] for j in range(n)] for i in range(p)]
-        lrmat = [[fixed_ref[lr_off + i * p + j] for j in range(p)] for i in range(p)]
-        x0v = [fixed_ref[x0_off + i] for i in range(n)]
-        l0mat = [[fixed_ref[l0_off + i * n + j] for j in range(n)] for i in range(n)]
-
-        for c in range(nchunks):
-            sl = slice(c * chunk, (c + 1) * chunk)
-            z0 = normal_batch(cshape, n)
-            for i in range(n):
-                base = jnp.full(cshape, x0v[i], jnp.float32)
-                spread = jnp.zeros(cshape, jnp.float32)
-                for j in range(i + 1):
-                    spread += l0mat[i][j] * z0[j]
-                xt_ref[i * 8 : (i + 1) * 8, sl] = base + spread
-                xe_ref[i * 8 : (i + 1) * 8, sl] = base
-
-        ones_mat = jnp.ones((chunk, 128), jnp.float32)
-
-        def body(t, _):
-            row = t * row_len
-            if tv:
-                hm = [[path_ref[row + h_row_off + i * n + j]
-                       for j in range(n)] for i in range(p)]
-                lrm = [[path_ref[row + lr_row_off + i * p + j]
-                        for j in range(p)] for i in range(p)]
-            else:
-                hm, lrm = hmat, lrmat
-            kvals = [[path_ref[row + k_off + i * p + j] for j in range(p)]
-                     for i in range(n)]
-            pivals = [[path_ref[row + pi_off + i * n + j] for j in range(n)]
-                      for i in range(n)]
-            sivals = [[path_ref[row + si_off + i * p + j] for j in range(p)]
-                      for i in range(p)]
-            guvals = (
-                [path_ref[row + gu_off + i] for i in range(n)] if ctrl else None
-            )
-
-            accs = [jnp.zeros(cshape, jnp.float32) for _ in range(2 + 2 * n)]
-            for c in range(nchunks):
-                sl = slice(c * chunk, (c + 1) * chunk)
-                wv = normal_batch(cshape, n + p)
-                w, v = wv[:n], wv[n:]
-                xt = [xt_ref[i * 8 : (i + 1) * 8, sl] for i in range(n)]
-                xe = [xe_ref[i * 8 : (i + 1) * 8, sl] for i in range(n)]
-
-                xt_new = [None] * n
-                xp = [None] * n
-                for i in range(n):
-                    acc = jnp.zeros(cshape, jnp.float32)
-                    accp = jnp.zeros(cshape, jnp.float32)
-                    for j in range(n):
-                        acc += fmat[i][j] * xt[j]
-                        accp += fmat[i][j] * xe[j]
-                    for j in range(i + 1):
-                        acc += lqmat[i][j] * w[j]
-                    if ctrl:
-                        acc += guvals[i]
-                        accp += guvals[i]
-                    xt_new[i] = acc
-                    xp[i] = accp
-
-                innov = [None] * p
-                for i in range(p):
-                    acc = jnp.zeros(cshape, jnp.float32)
-                    for j in range(n):
-                        acc += hm[i][j] * (xt_new[j] - xp[j])
-                    for j in range(i + 1):
-                        acc += lrm[i][j] * v[j]
-                    innov[i] = acc
-
-                err = [None] * n
-                for i in range(n):
-                    upd = xp[i]
-                    for j in range(p):
-                        upd += kvals[i][j] * innov[j]
-                    xe_ref[i * 8 : (i + 1) * 8, sl] = upd
-                    xt_ref[i * 8 : (i + 1) * 8, sl] = xt_new[i]
-                    err[i] = xt_new[i] - upd
-
-                nees = jnp.zeros(cshape, jnp.float32)
-                for i in range(n):
-                    nees += pivals[i][i] * err[i] * err[i]
-                    for j in range(i + 1, n):
-                        nees += (2.0 * pivals[i][j]) * err[i] * err[j]
-                nis = jnp.zeros(cshape, jnp.float32)
-                for i in range(p):
-                    nis += sivals[i][i] * innov[i] * innov[i]
-                    for j in range(i + 1, p):
-                        nis += (2.0 * sivals[i][j]) * innov[i] * innov[j]
-
-                accs[0] += nees
-                accs[1] += nis
-                for i in range(n):
-                    accs[2 + i] += xt_new[i]
-                    accs[2 + n + i] += xt_new[i] * xt_new[i]
-
-            block = jnp.concatenate(accs, axis=0)
-            partial = jax.lax.dot_general(
-                block, ones_mat, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-            for q in range(2 + 2 * n):
-                stats_ref[q, t] = jnp.sum(partial[q * 8:(q + 1) * 8, :]) * (
-                    1.0 / 128.0
-                )
-            return ()
-
-        jax.lax.fori_loop(0, steps, body, ())
-
-    def _pack_path(k_path, p_inv_path, s_inv_path, hs=None, lrs=None, gus=None):
-        t = k_path.shape[0]
-        cols = [
-            k_path.reshape(t, n * p),
-            p_inv_path.reshape(t, n * n),
-            s_inv_path.reshape(t, p * p),
-        ]
-        if tv:
-            cols += [hs.reshape(t, p * n), lrs.reshape(t, p * p)]
-        if ctrl:
-            cols.append(gus.reshape(t, n))
-        used = sum(c.shape[1] for c in cols)
-        cols.append(jnp.zeros((t, row_len - used), k_path.dtype))
-        return jnp.concatenate(cols, axis=1).reshape(-1).astype(jnp.float32)
-
-    def _pack_fixed(f, lq, h, lr, x0, spread_l):
-        flat = jnp.concatenate(
-            [m.reshape(-1) for m in (f, lq, h, lr, x0, spread_l)]
-        )
-        return jnp.pad(flat, (0, fixed_len - flat.shape[0])).astype(jnp.float32)
-
-    @functools.partial(jax.jit, static_argnames=("samples", "steps", "init_spread"))
-    def run(model, state0, samples, steps, seed, init_spread=True,
-            controls=None, hs=None, rs=None, meas_masks=None, path=None):
-        if samples % tile:
-            raise ValueError(f"samples must be a multiple of {tile}")
-        grid = samples // tile
-
-        if path is None:
-            path = _compute_path(model, state0, steps, controls, hs, rs,
-                                 meas_masks, tv=tv, ctrl=ctrl)
-        k_path, s_inv_path, p_inv_path, hs_m, lrs, gus = path
-        path = _pack_path(k_path, p_inv_path, s_inv_path, hs_m, lrs, gus)
-        spread_l = (
-            linalg.chol_or_eigh_sqrt(state0.p) if init_spread
-            else jnp.zeros_like(state0.p)
-        )
-        fixed = _pack_fixed(
-            model.f, model.noise.sqrt_q, model.h, model.noise.sqrt_r,
-            state0.x, spread_l,
-        )
-        seed = jnp.asarray(seed, jnp.int32).reshape(1)
-        steps_arr = jnp.asarray(steps, jnp.int32).reshape(1)
-        # SMEM memrefs are (8,128)-tiled: the stats block stays exactly
-        # at the padded tile shape so no misaligned slicing is generated.
-        steps_pad = ((steps + 127) // 128) * 128
-
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=4,  # path, fixed, seed, steps -> SMEM
-            grid=(grid,),
-            in_specs=[],
-            out_specs=pl.BlockSpec(
-                (1, stats_rows, steps_pad), lambda i, *_: (i, 0, 0),
-                memory_space=pltpu.SMEM,
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((n * 8, tile // 8), jnp.float32),
-                pltpu.VMEM((n * 8, tile // 8), jnp.float32),
-            ],
-        )
-
-        body_fn = kernel_body_chunked if chunk else kernel_body
-
-        def kernel(path_ref, fixed_ref, seed_ref, steps_ref,
-                   stats_ref, xt_ref, xe_ref):
-            body_fn(path_ref, fixed_ref, seed_ref, steps_ref,
-                    stats_ref.at[0], xt_ref, xe_ref)
-
-        stats = pl.pallas_call(
+    def launch(rows, fixed, ctr, samples):
+        grid = pl.cdiv(samples, tile)
+        return pl.pallas_call(
             kernel,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((grid, stats_rows, steps_pad), jnp.float32),
-        )(path, fixed, seed, steps_arr)
+            grid=(grid,),
+            out_shape=jax.ShapeDtypeStruct(
+                (grid, lay.stats_rows, rows.shape[0]), jnp.float32),
+            backend="triton",
+            compiler_params=_compiler_params(tile),
+            interpret=interpret,
+            name="mc_chi_square_fused",
+        )(rows, fixed, ctr, jnp.asarray([samples], jnp.int32))
 
-        total = jnp.sum(stats, axis=0)[:, :steps]
-        nees_means = total[0] / samples
-        nis_means = total[1] / samples
-        mean = total[2 : 2 + n].T / samples
-        x2sum = total[x2_row : x2_row + n].T
-        # Clamp: the sum-of-squares form can go epsilon-negative when the
-        # ensemble is (near-)degenerate.
-        var = jnp.maximum(x2sum - samples * mean**2, 0.0) / (samples - 1)
-        return ChiSquareResult(nis_means, nees_means, mean, jnp.sqrt(var))
+    return lay, launch
 
-    return run
+
+def _finish(sums, shift, samples: int) -> ChiSquareResult:
+    """ChiSquareResult from the [2+2n, T] member sums and the [T, n]
+    shift they were taken about."""
+    n = shift.shape[1]
+    mean_d = sums[2:2 + n].T / samples
+    # Clamp: the sum-of-squares form can go epsilon-negative when the
+    # ensemble is (near-)degenerate.
+    var = jnp.maximum(sums[2 + n:].T - samples * mean_d**2, 0.0) / (
+        samples - 1)
+    return ChiSquareResult(sums[1] / samples, sums[0] / samples,
+                           shift + mean_d, jnp.sqrt(var))
+
+
+@functools.partial(
+    jax.jit, static_argnames=("samples", "steps", "init_spread", "tile",
+                              "tv", "ctrl", "interpret"))
+def _stat_sums(model, state0, samples, steps, seed, member_offset,
+               init_spread, tile, tv, ctrl, interpret,
+               controls=None, hs=None, rs=None, meas_masks=None, path=None):
+    """([2+2n, T] sums over members [offset, offset + samples) of
+    (NEES, NIS, d, d²) per step, the [T, n] shift c of d = x_t - c)."""
+    n = model.f.shape[0]
+    p = model.h.shape[0]
+    lay, launch = _build(n, p, tile, tv, ctrl, interpret)
+    if path is None:
+        path = _compute_path(model, state0, steps, controls, hs, rs,
+                             meas_masks, tv=tv, ctrl=ctrl)
+    rows, fixed = _pack(model, state0, path, lay, init_spread)
+    key = _key(seed)
+    ctr = jnp.concatenate(
+        [key, jnp.asarray(member_offset).astype(jnp.uint32).reshape(1)])
+    per_block = launch(rows, fixed, ctr, samples)
+    return jnp.sum(per_block, axis=0), rows[:, lay.c:lay.c + n]
 
 
 def mc_chi_square_pallas(
@@ -625,23 +413,83 @@ def mc_chi_square_pallas(
     rs=None,
     meas_masks=None,
     path=None,
-    chunk: int = 0,
-    fast_rng: bool = False,
+    interpret: bool = False,
 ) -> ChiSquareResult:
     """Fused-kernel equivalent of ops.ensemble.mc_chi_square
     (lagged_measurements=False semantics) for any (n, p) model,
     including jerkcar-class time-varying padded (hs, rs, meas_masks)
-    schedules and a shared control stream — both are streamed through
-    the kernel's per-step SMEM path rows.  `seed` is an int32 scalar;
-    each ensemble tile derives its own hardware PRNG stream.  Kernels
-    are built and cached per (n, p, tile, tv, ctrl).  `path` takes a
+    schedules and a shared control stream; both are read from the
+    kernel's per-step path rows.  `seed` is an integer scalar; member i
+    draws its noise from the counter stream (seed, i, step, draw).
+    `tile` (a power of two) members run in each program; any `samples`
+    works (the last block is masked).  `path` takes a
     precompute_path(...) result so repeated experiments skip the
-    seed-independent covariance-path computation."""
-    n = model.f.shape[0]
-    p = model.h.shape[0]
-    tv = hs is not None or rs is not None or meas_masks is not None
-    ctrl = controls is not None and model.g is not None
-    run = _build(n, p, min(tile, samples), tv, ctrl, chunk, fast_rng)
-    return run(model, state0, samples, steps, seed, init_spread,
-               controls=controls if ctrl else None,
-               hs=hs, rs=rs, meas_masks=meas_masks, path=path)
+    seed-independent covariance-path computation.  `interpret=True`
+    runs the kernel through the Pallas interpreter (CPU tests)."""
+    tv, ctrl = _flags(model, controls, hs, rs, meas_masks)
+    sums, shift = _stat_sums(
+        model, state0, samples, steps, seed, 0, init_spread, tile, tv, ctrl,
+        interpret, controls=controls if ctrl else None, hs=hs, rs=rs,
+        meas_masks=meas_masks, path=path)
+    return _finish(sums, shift, samples)
+
+
+@functools.partial(jax.jit, static_argnames=("samples", "steps",
+                                             "init_spread"))
+def mc_chi_square_reference(model, state0, samples, steps, seed,
+                            init_spread=True, controls=None, hs=None,
+                            rs=None, meas_masks=None, path=None):
+    """The kernel's pipeline in plain jnp (a lax.scan over [S] member
+    arrays) with the identical counter noise, so the kernel can be
+    checked against it member for member, not only statistically."""
+    tv, ctrl = _flags(model, controls, hs, rs, meas_masks)
+    lay = _Layout(model.f.shape[0], model.h.shape[0], tv, ctrl)
+    if path is None:
+        path = _compute_path(model, state0, steps, controls, hs, rs,
+                             meas_masks, tv=tv, ctrl=ctrl)
+    rows, fixed_v = _pack(model, state0, path, lay, init_spread)
+    fixed = lambda off: fixed_v[off]
+    key = _key(seed)
+    member = jnp.arange(samples, dtype=jnp.uint32)
+    carry = _init(lay, fixed, key, member)
+
+    def body(carry, xs):
+        t, row_v = xs
+        xt, xe, stats = _step(lay, fixed, lambda off: row_v[off], key,
+                              member, t, *carry)
+        return (xt, xe), jnp.stack([jnp.sum(s) for s in stats])
+
+    _, sums = jax.lax.scan(body, carry,
+                           (jnp.arange(steps, dtype=jnp.int32), rows))
+    return _finish(sums.T, rows[:, lay.c:lay.c + lay.n], samples)
+
+
+def sample_normals_pallas(count: int, seed, tile: int = 1024,
+                          interpret: bool = False) -> jax.Array:
+    """The first `count` standard normals of the kernel's generator:
+    member i's initial-spread pair (slot 0) gives draws 2i and 2i+1.
+
+    Exists so the generator's statistics are testable on their own; the
+    fused pipeline's NEES/NIS gates would mask a subtly broken generator
+    behind filter averaging."""
+    blocks = pl.cdiv(count, 2 * tile)
+
+    def kernel(key_ref, z0_ref, z1_ref):
+        member = (pl.program_id(0) * tile
+                  + jnp.arange(tile, dtype=jnp.int32)).astype(jnp.uint32)
+        z0_ref[...], z1_ref[...] = _normal_pair(*threefry2x32(
+            key_ref[0], key_ref[1], member, jnp.uint32(0)))
+
+    spec = pl.BlockSpec((tile,), lambda i: (i,))
+    z0, z1 = pl.pallas_call(
+        kernel,
+        grid=(blocks,),
+        in_specs=[pl.no_block_spec],
+        out_specs=[spec, spec],
+        out_shape=[jax.ShapeDtypeStruct((blocks * tile,), jnp.float32)] * 2,
+        backend="triton",
+        compiler_params=_compiler_params(tile),
+        interpret=interpret,
+        name="sample_normals",
+    )(_key(seed))
+    return jnp.stack([z0, z1], axis=1).reshape(-1)[:count]

@@ -1,4 +1,4 @@
-"""Multi-chip scaling (the reference has no distributed layer — see
+"""Multi-device scaling (the reference has no distributed layer — see
 SURVEY.md §2 'Parallelism' note; the capability-equivalent here is
 ensemble data-parallelism over a device mesh)."""
 

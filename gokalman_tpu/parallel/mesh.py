@@ -1,13 +1,13 @@
-"""Ensemble sharding over a TPU device mesh.
+"""Ensemble sharding over a device mesh.
 
 The reference scales only by running more independent sequences in a
 Go loop (montecarlo.go:108-117) with channel-based CSV streaming as its
-sole concurrency (README.md:11).  The TPU-native equivalent is a 1-D
-`ensemble` mesh axis: Monte-Carlo runs are sharded across chips with
+sole concurrency (README.md:11).  The equivalent here is a 1-D
+`ensemble` mesh axis: Monte-Carlo runs are sharded across devices with
 `jax.sharding`, the per-step ensemble reductions (mean/stddev/NEES/NIS)
-lower to XLA all-reduces over ICI, and the time axis stays a local
-lax.scan on every chip (the recurrence is inherently serial —
-SURVEY.md §5 'long-context' note).
+lower to all-reduces that XLA hands to the collective library, and the
+time axis stays a local lax.scan on every device (the recurrence is
+inherently serial — SURVEY.md §5 'long-context' note).
 
 No TP/PP/SP/EP axes exist because the model state is a 6-vector: there
 is nothing to shard but the embarrassingly parallel run axis.  This is
@@ -25,8 +25,6 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
 ENSEMBLE_AXIS = "ensemble"
-SLICE_AXIS = "slice"
-CHIP_AXIS = "chip"
 
 
 def ensemble_mesh(devices=None) -> Mesh:
@@ -35,51 +33,24 @@ def ensemble_mesh(devices=None) -> Mesh:
     return Mesh(np.asarray(devices), (ENSEMBLE_AXIS,))
 
 
-def multislice_mesh(n_slices: int, chips_per_slice: int, devices=None) -> Mesh:
-    """2-D ('slice', 'chip') mesh for multi-slice pods.
-
-    The ensemble axis is sharded over BOTH mesh axes; per-step stat
-    reductions then decompose into an all-reduce over 'chip' (riding
-    ICI within each slice) followed by one over 'slice' (riding DCN) —
-    GSPMD/shard_map do this automatically for a tuple axis_name, and
-    the DCN leg moves only the [T]-sized partial statistics, never the
-    ensembles.  On single-slice hardware (or the CPU test mesh) the
-    decomposition is exercised with virtual devices.
-    """
-    devices = jax.devices() if devices is None else devices
-    if len(devices) < n_slices * chips_per_slice:
-        raise ValueError(
-            f"need {n_slices * chips_per_slice} devices, have {len(devices)}"
-        )
-    grid = np.asarray(devices[: n_slices * chips_per_slice]).reshape(
-        n_slices, chips_per_slice
-    )
-    return Mesh(grid, (SLICE_AXIS, CHIP_AXIS))
-
-
 def ensemble_sharding(mesh: Mesh, batch_axis: int = -1, ndim: int = 2) -> NamedSharding:
-    """NamedSharding placing the ensemble axis across the whole mesh.
+    """NamedSharding placing the ensemble axis across the 1-D mesh.
 
-    Default matches the ops.ensemble lanes-major [n, S] layout
-    (S = last axis).  For a multi-slice mesh the single ensemble axis
-    is sharded over every mesh axis (('slice', 'chip')).
+    Default matches the ops.ensemble [n, S] layout (S = last axis).
     """
     spec = [None] * ndim
-    names = mesh.axis_names
-    spec[batch_axis] = names[0] if len(names) == 1 else names
+    spec[batch_axis] = mesh.axis_names[0]
     return NamedSharding(mesh, P(*spec))
 
 
 def pool_ensemble_stats(mean_local, std_local, shard_samples: int, axis_name):
     """Pool per-shard ensemble (mean, stddev[ddof=1]) into the global
-    (mean, stddev[ddof=1]) over a named mesh axis (or tuple of axes —
-    for a multi-slice mesh the reduction rides ICI within the slice,
-    then DCN across slices).
+    (mean, stddev[ddof=1]) over a named mesh axis.
 
     The pooled variance is recovered from each shard's second moment
     ((m-1)·s² + m·x̄²); taking pmean of per-shard stddevs instead would
     systematically under-estimate the ensemble spread (Jensen: sqrt is
-    concave), so multi-chip results would not match a single-chip run
+    concave), so multi-device results would not match a single-device run
     on the same total ensemble.
     """
     ndev = jax.lax.psum(1, axis_name)
@@ -99,46 +70,33 @@ def sharded_mc_chi_square_pallas(
     seed: int,
     mesh: Optional[Mesh] = None,
     init_spread: bool = True,
-    tile: int = 8192,
+    tile: int | None = None,
+    interpret: bool = False,
 ):
-    """Multi-chip fused-kernel pipeline: every device runs the Pallas
-    kernel on its own ensemble shard (seeded by mesh position), and the
-    per-step statistics are combined with `pmean` over ICI — the
-    native-tier analogue of sharded_mc_chi_square.
+    """Multi-device fused-kernel pipeline: device d runs the kernel on
+    members [d·m, (d+1)·m) of one counter-keyed ensemble (m =
+    samples_per_device), and the per-step statistic sums are combined
+    with one psum.  The result is the single-device
+    mc_chi_square_pallas(samples = m·devices) up to summation order.
     """
-    from ..ops.ensemble import ChiSquareResult
-    from ..ops.pallas_mc import mc_chi_square_pallas
+    from ..ops import pallas_mc
 
     mesh = ensemble_mesh() if mesh is None else mesh
-    names = mesh.axis_names  # 1-D ('ensemble',) or 2-D ('slice','chip')
-    axes = names[0] if len(names) == 1 else names
+    axis = mesh.axis_names[0]
+    ndev = mesh.devices.size
+    tile = pallas_mc.TILE if tile is None else tile
 
-    def local(seed_arr):
-        out = mc_chi_square_pallas(
-            model, state0, samples_per_device, steps,
-            seed_arr.reshape(-1)[0],
-            init_spread=init_spread, tile=min(tile, samples_per_device),
-        )
-        # Per-run means pool as a plain pmean (equal shard sizes); the
-        # ensemble stddev must be pooled through its second moments —
-        # pmean of per-shard stddevs is biased low (sqrt is concave).
-        mean, stddev = pool_ensemble_stats(
-            out.mean, out.stddev, samples_per_device, axes
-        )
-        return ChiSquareResult(
-            nis_means=jax.lax.pmean(out.nis_means, axes),
-            nees_means=jax.lax.pmean(out.nees_means, axes),
-            mean=mean,
-            stddev=stddev,
-        )
+    def local():
+        offset = jax.lax.axis_index(axis) * samples_per_device
+        sums, shift = pallas_mc._stat_sums(
+            model, state0, samples_per_device, steps, seed, offset,
+            init_spread, tile, False, False, interpret)
+        return pallas_mc._finish(jax.lax.psum(sums, axis), shift,
+                                 samples_per_device * ndev)
 
-    shape = mesh.devices.shape
-    seeds = (seed + jnp.arange(mesh.devices.size, dtype=jnp.int32)).reshape(shape)
-    fn = jax.shard_map(
-        local, mesh=mesh, in_specs=P(*names), out_specs=P(),
-        check_vma=False,
-    )
-    return jax.jit(fn)(seeds)
+    fn = jax.shard_map(local, mesh=mesh, in_specs=(), out_specs=P(),
+                       check_vma=False)
+    return jax.jit(fn)()
 
 
 def sharded_mc_chi_square(
@@ -157,7 +115,7 @@ def sharded_mc_chi_square(
 ):
     """mc_chi_square with the run axis sharded across `mesh`.
 
-    Each chip owns samples/n_devices runs; the per-step NEES/NIS/mean
+    Each device owns samples/n_devices runs; the per-step NEES/NIS/mean
     reductions become psum-style collectives inserted by XLA (GSPMD).
     Requires samples % n_devices == 0.
     """
@@ -197,13 +155,13 @@ def sharded_enkf_run(noise, x0, p0, n_ens: int, measurements, fx, hx, key,
     on their device for the entire scan; each analysis step all-reduces
     only the tiny moment blocks (x-mean [n], y-moments [p]/[p,p],
     cross-covariance [n,p], perturbation mean [p], posterior moment
-    sums [n,n]) over ICI.  Noise is keyed per GLOBAL member index
+    sums [n,n]) over the mesh.  Noise is keyed per GLOBAL member index
     (filters.enkf._member_normals), so the result equals the unsharded
     filters.enkf.run bit-for-bit (tests/test_shard_enkf.py).
 
     The deterministic ETKF variant is intentionally NOT sharded: its
     [N, N] ensemble-space transform mixes all members densely, which is
-    the wrong tool once the ensemble needs more than one chip — use the
+    the wrong tool once the ensemble needs more than one device — use the
     stochastic form (or keep ETKF single-device).
     """
     from functools import partial
@@ -360,11 +318,11 @@ def sharded_sensor_fusion_run(x0, p0, f, q, hs, rs, measurements,
         i_post      = Lambda_pred x_pred + sum_s H_s' R_s^-1 y_s,
 
     so each device computes only its local sensors' [n, n] + [n]
-    contributions and one psum per step fuses them over ICI — the
+    contributions and one psum per step fuses them over the mesh — the
     measurement data (S sensor streams) never leaves its device.  The
     result equals the CENTRAL KF on the stacked measurement vector
     digit-for-digit (tests/test_shard_fusion.py), because it IS the
-    same algebra; this is the TPU-native shape of decentralized
+    same algebra; this is the data-parallel shape of decentralized
     estimation (cf. the exporter-of-information architecture the
     information filter exists for, information.go:1).
 

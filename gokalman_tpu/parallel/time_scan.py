@@ -14,8 +14,7 @@ distributes by the classic three-phase block decomposition:
      zero communication);
   2. the D block aggregates (one element each — a few n x n matrices)
      are `all_gather`-ed over the mesh axis and prefix-combined; the
-     collective moves O(D n^2) bytes TOTAL, independent of T, riding
-     ICI;
+     collective moves O(D n^2) bytes TOTAL, independent of T;
   3. each device folds its exclusive block prefix (the combination of
      all earlier blocks) into its local results with one vmapped
      combine.

@@ -20,9 +20,9 @@ recursion: Cov(x_{k+1}, x_k | Y_T) = P_{k+1|T} C_kᵀ, because
 p(x_k | x_{k+1}, Y_T) is the backward conditional with the RTS gain
 C_k as its regression matrix.
 
-TPU notes: everything runs under `linalg.highp` (f32 matmul drift
-compounds over T-step scans); solves are Cholesky-based (TPU x64 has
-no LU).
+Design notes: everything runs under `linalg.highp` (f32 matmul drift
+compounds over T-step scans); solves are Cholesky-based (the normal
+matrices are SPD).
 """
 
 from __future__ import annotations
@@ -235,7 +235,7 @@ def n4sid_fit(measurements, controls=None, order: int = 2,
     """Subspace identification (N4SID, Van Overschee & De Moor 1994):
     a NON-ITERATIVE complement to `em_fit` — no initial model, no local
     optima, one shot of dense linear algebra (Hankel regressions + one
-    SVD), which is exactly the shape the MXU likes.
+    SVD), which batches well.
 
     Combined deterministic-stochastic algorithm via regressions:
     the oblique projection O_i = Y_f /_{U_f} W_p is computed by

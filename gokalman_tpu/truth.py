@@ -1,6 +1,6 @@
 """Ground-truth comparator.
 
-TPU rebuild of the reference's BatchGroundTruth (reference:
+JAX rebuild of the reference's BatchGroundTruth (reference:
 truth.go:10-70): turns absolute estimates into error traces
 (est + offset - truth) while preserving the estimate's covariance, for
 plotting/export.  Operates on whole stacked estimate pytrees at once

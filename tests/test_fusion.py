@@ -363,7 +363,7 @@ def test_associate_and_fuse_improves_ospa():
 
 
 def test_ici_tighter_than_ci_unbiased_and_consistent():
-    """ICI pins: (a) unbiased combination (gains sum to I) for any w;
+    """Inverse-CI pins: (a) unbiased combination (gains sum to I) for any w;
     (b) det(P_ICI) <= det(P_CI) on random pairs; (c) no-gain on
     identical covariances (== P, like CI); (d) honest NEES in the
     shared-process-noise two-tracker scenario (its consistency model)
@@ -400,7 +400,7 @@ def test_ici_tighter_than_ci_unbiased_and_consistent():
                  / np.linalg.det(np.asarray(fc_b.covariance)))
     assert np.mean(nees_ici) < 2.5, np.mean(nees_ici)  # honest (n=2)
     # here both covariances share the same SHAPE (same H/F/Q), where
-    # ICI and CI coincide (both optima sit at the scalar endpoint) —
+    # inverse CI and CI coincide (both optima sit at the scalar endpoint) —
     # never worse is the guarantee:
     assert np.max(det_ratio) < 1.0 + 1e-6, np.max(det_ratio)
     # the strict win needs COMPLEMENTARY information directions:

@@ -1,9 +1,8 @@
 """f32 + vmap-bank smoke tests for the session's new tier.
 
-The TPU runs everything in float32: these pin that each new filter
+The device path runs in float32: these pin that each new filter
 (a) stays finite and sane in f32 (dtype promotions, eps guards), and
 (b) vmaps over scenario banks (the serving shape every module claims).
-CPU-side insurance for the on-chip validation pass.
 """
 
 import jax

@@ -1,10 +1,9 @@
 """Self-consistent OD (truth0 mode): the truth is co-propagated inside
 the filter scan and measurements are generated in-scan through the same
 batched integrator/station calls — the one-propagator structure of the
-reference's own tests (srif_test.go:89-125), and the only structure
-that holds reference-strict gates on the TPU's emulated x64 (separately
-compiled f64 programs there reproduce each other only to ~1e-7
-relative; measured 2e-4 km of range on this very scenario)."""
+reference's own tests (srif_test.go:89-125): a Q=0 filter cannot
+absorb any mismatch between a separately compiled truth program and
+its own propagator."""
 
 import functools
 

@@ -1,13 +1,15 @@
-"""Multi-chip fused-kernel pipeline: mechanics on the 8-device CPU mesh
-(interpreter PRNG is stubbed, so only shapes/finiteness here; the
-statistics are validated on TPU hardware where NEES/NIS land on n/p)."""
+"""Multi-device fused-kernel pipeline on the 8-device CPU mesh (the
+kernel through the Pallas interpreter): device d runs members
+[d·m, (d+1)·m) of one counter-keyed ensemble, so the sharded result
+equals the single-device kernel on the whole ensemble."""
 
 import jax
 import jax.numpy as jnp
-from jax.experimental.pallas import tpu as pltpu
+import numpy as np
 
 from gokalman_tpu import noise as gn
 from gokalman_tpu.filters import vanilla
+from gokalman_tpu.ops import pallas_mc
 from gokalman_tpu.parallel import mesh as pmesh
 
 
@@ -21,15 +23,20 @@ def test_sharded_kernel_mechanics_on_cpu_mesh():
     )
     mesh = pmesh.ensemble_mesh()
     assert mesh.devices.size == 8
-    with pltpu.force_tpu_interpret_mode():
-        out = pmesh.sharded_mc_chi_square_pallas(
-            model, st, samples_per_device=1024, steps=4, seed=0,
-            mesh=mesh, init_spread=False, tile=1024,
-        )
+    out = pmesh.sharded_mc_chi_square_pallas(
+        model, st, samples_per_device=128, steps=4, seed=0,
+        mesh=mesh, init_spread=True, interpret=True,
+    )
     assert out.nees_means.shape == (4,)
     assert out.mean.shape == (4, n)
     assert bool(jnp.all(jnp.isfinite(out.nees_means)))
     assert bool(jnp.all(jnp.isfinite(out.stddev)))
+    one = pallas_mc.mc_chi_square_pallas(model, st, 128 * 8, 4, 0,
+                                         init_spread=True, interpret=True)
+    for name in ("nees_means", "nis_means", "mean", "stddev"):
+        np.testing.assert_allclose(
+            np.asarray(getattr(out, name)), np.asarray(getattr(one, name)),
+            rtol=1e-5, atol=1e-6, err_msg=name)
 
 
 def test_pool_ensemble_stats_matches_global_stddev():
